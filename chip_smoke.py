@@ -4,27 +4,41 @@
     python3 chip_smoke.py          # from the root of a checkout; needs one CUDA card
 
 1. Builds the CUDA kernels from ``pointvit_tpu_torch/csrc`` (nvcc, sm_90a).
-2. Builds the APF ``slim2`` model at full width (E=768, 12 blocks x 12
-   heads, npoint 196, nsample 16, encoder second width 384, bf16) with
+2. Serving: builds the APF ``slim2`` model at full width (E=768, 12 blocks
+   x 12 heads, npoint 196, nsample 16, encoder second width 384, bf16) with
    random weights from a seeded ``torch.Generator``, and serves requests of
    1, 5, 32 and 256 clouds of 1024 points through ``InferenceSession`` on
    the kernel path. The same requests go through a session on the plain
    path (``implementation='torch'``) on the same card, and the logits must
-   agree. Each kernel's launch count during the kernel-path requests must be
-   above zero. Serving throughput at bucket 256 is timed for both paths.
-3. Holds each kernel against its plain version on the card at the shapes
-   the main path gives it, and times both.
+   agree. Each serving kernel's launch count during the kernel-path
+   requests must be above zero. Serving throughput at bucket 256 is timed
+   for both paths.
+3. Training: two ``Trainer``s on identical seeded ``slim2`` weights with 15
+   classes, one on the kernel path and one on the plain path, take the same
+   7 steps of 256 x 1024 clouds (masked AdamW, lr 5e-4, wd 5e-2, timm cosine
+   schedule with warm-up, label smoothing 0.3, dropout and drop-path 0.1,
+   random FPS starts, all drawn from one seeded CUDA generator per trainer
+   in the same order). Every loss must be finite; the first loss and each
+   trainable gradient of the first step, and the trainable parameters after
+   the last, must agree between the paths; frozen parameters must not
+   change; FPS, kNN and both attention kernels must launch during the 5
+   timed steps. Both paths' ms per step and clouds/s are printed.
+4. Holds each kernel against its plain version on the card at the shapes
+   the main paths give it, and times both.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``. Any failure exits
-non-zero; without a CUDA device it exits 1 before doing anything.
+non-zero; without a CUDA device it exits 1 before doing anything. It imports
+nothing of JAX and nothing of the JAX package ``pointvit_tpu``.
 """
 
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -40,12 +54,50 @@ BF16_REL_TOL = 2.0**-6
 # Logits after 12 bf16 blocks: the per-op differences above compound.
 LOGIT_REL_TOL = 0.05
 
+# Training: slim2 with 15 classes, as benchmarks/train_step_bench.py arm slim2.
+TRAIN_BATCH, TRAIN_CLASSES = 256, 15
+WARMUP_STEPS, TIMED_STEPS = 2, 5
+LR, WEIGHT_DECAY, LABEL_SMOOTHING = 5e-4, 5e-2, 0.3
+# The two training paths run identical code except the attention forward
+# and backward (kernel vs plain, both bf16 with the same rounding points).
+# In bf16 the APF trunk's double residual doubles the token stream in every
+# block, so bf16 rounding of the stream is large against each block's
+# branch: on the card both bf16 paths' first-step gradients lie 0.2-0.45
+# (relative L2) from an f32 run of the same step, and 0.1-0.25 from each
+# other (batch 64). The kernel path is therefore held to the plain path and
+# to that f32 reference. Bounds, set from those runs before the final one:
+TRAIN_LOSS_REL_TOL = 5e-3   # first loss, |Δ| / |plain| (seen: 3.7e-5 at batch 256, 5e-4 at 64)
+TRAIN_GRAD_REL_TOL = 0.5    # each trainable gradient vs the plain path's, relative L2
+# ... and no further from the f32 gradient than the plain path is, within
+# this factor (seen: at most 1.25 for tensors of 64 or more elements).
+TRAIN_GRAD_F32_RATIO = 1.5
+# The 12 one-element adapter scales are held only through all gradients
+# taken together: each is one sum over the whole batch that nearly cancels,
+# so both bf16 paths are several times their own size from f32 there.
+# A bias that feeds a train-mode BatchNorm (and the final norm's bias) has
+# an exactly zero gradient; both paths give rounding noise there, held
+# against the global gradient norm instead (seen: 0.0076).
+TRAIN_ZERO_GRAD_TOL = 0.05
+PRE_BN_BIASES = ("first_0.bias", "first_1.bias", "first_2.bias", "second_0_global.bias",
+                 "head.fc0.bias", "head.fc1.bias", "encoder_norm.bias")
+# Trainable parameters after the 7 steps, relative L2 norm per tensor: Adam
+# moves every element by about lr per step whatever its gradient's size, so
+# elements whose gradients the bf16 noise above flips move the other way
+# (seen: at most 0.045).
+TRAIN_PARAM_REL_TOL = 0.1
+
 KERNELS = {
     "fps": ("pointvit_tpu_torch/csrc/fps.cu", "pointvit_tpu/ops/pallas_fps.py:78"),
     "knn": ("pointvit_tpu_torch/csrc/knn.cu", "pointvit_tpu/ops/pallas_knn.py:109"),
     "group_encoder": ("pointvit_tpu_torch/csrc/gemm.cu", "pointvit_tpu/ops/pallas_encoder.py:93"),
     "apf_block": ("pointvit_tpu_torch/csrc/block.cu", "pointvit_tpu/ops/pallas_block.py:197"),
+    "mha_qkv": ("pointvit_tpu_torch/csrc/block.cu", "pointvit_tpu/ops/pallas_attention.py:205"),
+    "mha_qkv_bwd": ("pointvit_tpu_torch/csrc/attention_bwd.cu",
+                    "pointvit_tpu/ops/pallas_attention.py:399"),
 }
+# The counters each path must raise: the ports and the kernels they chain.
+SERVING_COUNTERS = ("fps", "knn", "group_encoder", "apf_block", "gemm", "layernorm", "attention")
+TRAINING_COUNTERS = ("fps", "knn", "mha_qkv", "mha_qkv_bwd")
 
 
 def fail(msg: str) -> None:
@@ -95,6 +147,143 @@ def rel_err(torch, got, want) -> tuple[float, float]:
     return d, d / max(want.float().abs().max().item(), 1e-30)
 
 
+def rel_l2(got, want) -> float:
+    return ((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30)).item()
+
+
+def shape_clouds(rng, n: int, classes: int) -> tuple[np.ndarray, np.ndarray]:
+    """Seeded class-separable clouds: class c is a zero-mean Gaussian with
+    its own per-axis scales, rotated at random per cloud."""
+    scales = 0.3 + 0.7 * rng.random((classes, 3))
+    labels = rng.integers(0, classes, n)
+    pts = rng.standard_normal((n, POINTS, 3)) * scales[labels][:, None, :]
+    q, _ = np.linalg.qr(rng.standard_normal((n, 3, 3)))
+    return np.einsum("npi,nij->npj", pts, q).astype(np.float32), labels
+
+
+def train_phase(torch, dev, _build) -> dict:
+    """Both training paths on the same seeded weights, batches and draws."""
+    from pointvit_tpu_torch.models import AdaptPointFormer, apf_preset_config, apf_trainable_mask
+    from pointvit_tpu_torch.train import (
+        Trainer, build_optimizer, cross_entropy_loss, set_trainable, timm_cosine_schedule,
+    )
+
+    cfg = apf_preset_config("slim2", num_classes=TRAIN_CLASSES)  # dropout, drop-path 0.1
+    models = {"kernel": AdaptPointFormer(**cfg), "plain": AdaptPointFormer(**cfg, implementation="torch")}
+    randomize(torch, models["kernel"], torch.Generator().manual_seed(SEED + 1))
+    models["plain"].load_state_dict(models["kernel"].state_dict())
+    init = {n: p.detach().clone() for n, p in models["kernel"].named_parameters()}
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    trainers = {}
+    for path, model in models.items():
+        sched = timm_cosine_schedule(LR, 100, 1, warmup_epochs=5, warmup_lr_init=1e-3)
+        opt = build_optimizer(model, sched, weight_decay=WEIGHT_DECAY,
+                              trainable_mask=apf_trainable_mask(model))
+        trainers[path] = Trainer(
+            model, train_dataset=None, test_dataset=None, optimizer=opt, schedule=sched,
+            batch_size=TRAIN_BATCH, epochs=1, label_smoothing=LABEL_SMOOTHING,
+            output_dir=out_dir, seed=SEED, device=dev, train_loader=[], test_loader=[],
+            save_config_snapshot=False,
+        )
+    shutil.rmtree(out_dir)
+    trainable = sorted(apf_trainable_mask(models["kernel"]))
+    rng = np.random.default_rng(SEED + 1)
+    batches = []  # steps 1..WARMUP_STEPS warm up, the rest are timed
+    for _ in range(WARMUP_STEPS + TIMED_STEPS):
+        pts, lbl = shape_clouds(rng, TRAIN_BATCH, TRAIN_CLASSES)
+        batches.append((torch.from_numpy(pts).to(dev), torch.from_numpy(lbl).to(dev)))
+
+    # The f32 reference of the first step: the plain path in f32 on the same
+    # weights, batch and draws (a generator seeded as the trainers' are).
+    ref = AdaptPointFormer(**{**cfg, "dtype": torch.float32}, implementation="torch")
+    ref.load_state_dict(models["kernel"].state_dict())
+    set_trainable(ref, trainable)
+    ref = ref.to(dev)
+    logits = ref(batches[0][0], train=True, generator=torch.Generator(device=dev).manual_seed(SEED))
+    cross_entropy_loss(logits, batches[0][1], LABEL_SMOOTHING).mean().backward()
+    res = {"losses": {}, "ms": {}, "grads": {
+        "f32": {n: p.grad.detach().clone() for n, p in ref.named_parameters() if n in trainable}}}
+    del ref, logits
+    for path, tr in trainers.items():
+        loss, _, _ = tr.train_step(*batches[0])
+        res["losses"][path] = [loss]
+        res["grads"][path] = {n: p.grad.detach().clone()
+                              for n, p in tr.model.named_parameters() if n in trainable}
+        for b in batches[1:WARMUP_STEPS]:
+            res["losses"][path].append(tr.train_step(*b)[0])
+    for path, tr in trainers.items():
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for b in batches[WARMUP_STEPS:]:
+            res["losses"][path].append(tr.train_step(*b)[0])
+        t1.record()
+        torch.cuda.synchronize()
+        res["ms"][path] = t0.elapsed_time(t1) / TIMED_STEPS
+        if path == "kernel":
+            res["counts"] = _build.launch_counts()
+    res["losses"] = {k: [v.item() for v in vs] for k, vs in res["losses"].items()}
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+
+    # -- checks ---------------------------------------------------------------
+    lk, lp = res["losses"]["kernel"], res["losses"]["plain"]
+    print(f"train losses: kernel path {lk}, plain path {lp}", flush=True)
+    if not all(np.isfinite(lk + lp)):
+        fail("a training loss is not finite")
+    d = abs(lk[0] - lp[0]) / abs(lp[0])
+    print(f"train: first loss |d| / |plain| {d:.3g} (bound {TRAIN_LOSS_REL_TOL})", flush=True)
+    if not d <= TRAIN_LOSS_REL_TOL:
+        fail("the first training loss disagrees between the kernel and plain paths")
+    gk, gp, gf = (res["grads"][k] for k in ("kernel", "plain", "f32"))
+    zero = [n for n in trainable if n.endswith(PRE_BN_BIASES)]
+    live = [n for n in trainable if n not in zero]
+    flat = lambda g: torch.cat([g[n].float().flatten() for n in live])  # noqa: E731
+    total = flat(gp).norm().item()
+    worst_zero = max((max(gk[n].float().norm().item(), gp[n].float().norm().item()) / total, n)
+                     for n in zero)
+    tensors = [n for n in live if gf[n].numel() > 1]
+    worst_grad = max((rel_l2(gk[n], gp[n]), n) for n in tensors)
+    worst_ratio = max((rel_l2(gk[n], gf[n]) / rel_l2(gp[n], gf[n]), n) for n in tensors)
+    ek, ep = rel_l2(flat(gk), flat(gf)), rel_l2(flat(gp), flat(gf))
+    print(f"train: first-step gradients, {len(tensors)} trainable tensors: kernel vs plain path "
+          f"worst relative L2 {worst_grad[0]:.3g} ({worst_grad[1]}; bound {TRAIN_GRAD_REL_TOL}); "
+          f"(kernel vs f32) / (plain vs f32) worst {worst_ratio[0]:.3g} ({worst_ratio[1]}; bound "
+          f"{TRAIN_GRAD_F32_RATIO}); all {len(live)} together: kernel vs f32 {ek:.3g}, plain vs "
+          f"f32 {ep:.3g}, kernel vs plain {rel_l2(flat(gk), flat(gp)):.3g}; {len(zero)} exactly-zero "
+          f"gradients at most {worst_zero[0]:.3g} of the global norm {total:.4g} ({worst_zero[1]}; "
+          f"bound {TRAIN_ZERO_GRAD_TOL})", flush=True)
+    if not (worst_grad[0] <= TRAIN_GRAD_REL_TOL and worst_ratio[0] <= TRAIN_GRAD_F32_RATIO
+            and ek <= TRAIN_GRAD_F32_RATIO * ep and worst_zero[0] <= TRAIN_ZERO_GRAD_TOL):
+        fail("first-step gradients of the kernel path disagree with the plain path's or f32's")
+    pk, pp = dict(models["kernel"].named_parameters()), dict(models["plain"].named_parameters())
+    worst_param = max((rel_l2(pk[n], pp[n]), n) for n in trainable)
+    moved = min(rel_l2(pp[n], init[n].to(dev)) for n in trainable)
+    print(f"train: trainable parameters after {WARMUP_STEPS + TIMED_STEPS} steps: worst "
+          f"relative L2 between the paths {worst_param[0]:.3g} ({worst_param[1]}; bound "
+          f"{TRAIN_PARAM_REL_TOL}); smallest move from the init {moved:.3g}", flush=True)
+    if not worst_param[0] <= TRAIN_PARAM_REL_TOL or not moved > 0:
+        fail("trainable parameters disagree between the paths after training, or did not move")
+    for path, m in models.items():
+        for n, p in m.named_parameters():
+            if n not in trainable and not torch.equal(p.detach().cpu(), init[n]):
+                fail(f"{path} path changed the frozen parameter {n}")
+    print(f"train: {len(init) - len(trainable)} frozen tensors bit-unchanged on both paths",
+          flush=True)
+    print(f"train launches during the timed steps: {json.dumps(res['counts'])}", flush=True)
+    for name in TRAINING_COUNTERS:
+        if res["counts"].get(name, 0) <= 0:
+            fail(f"the training path never launched the {name} kernel")
+    tk, tp = res["ms"]["kernel"], res["ms"]["plain"]
+    print(f"train step at batch {TRAIN_BATCH}: kernel path {tk:.3f} ms/step "
+          f"({TRAIN_BATCH * 1e3 / tk:.1f} clouds/s trained), plain path {tp:.3f} ms/step "
+          f"({TRAIN_BATCH * 1e3 / tp:.1f} clouds/s); peak device memory {res['peak_gib']:.2f} GiB",
+          flush=True)
+    del trainers, models
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> None:
     try:
         import torch
@@ -105,7 +294,10 @@ def main() -> None:
     try:
         from pointvit_tpu_torch import _build
         from pointvit_tpu_torch.models import AdaptPointFormer, apf_preset_config
-        from pointvit_tpu_torch.ops import block_kernel, encoder_kernel, fps_kernel, knn_kernel
+        from pointvit_tpu_torch.nn.layers import layer_norm, linear
+        from pointvit_tpu_torch.ops import (
+            attention_kernel, block_kernel, encoder_kernel, fps_kernel, knn_kernel,
+        )
         from pointvit_tpu_torch.ops.fps import fps_gather
         from pointvit_tpu_torch.ops.group import apf_group
         from pointvit_tpu_torch.serve import InferenceSession
@@ -159,9 +351,9 @@ def main() -> None:
           f"(bound {LOGIT_REL_TOL} x max|logit|)", flush=True)
     if agree < ARGMAX_AGREEMENT or dlogit > LOGIT_REL_TOL * scale:
         fail("kernel-path logits disagree with the plain path")
-    for name in set(KERNELS) | set(counts):  # the four ports and the kernels they chain
+    for name in SERVING_COUNTERS:
         if counts.get(name, 0) <= 0:
-            fail(f"the main path never launched the {name} kernel")
+            fail(f"the serving path never launched the {name} kernel")
 
     big = requests[-1]
     run_k = lambda: sess.predict_logits(big)
@@ -174,6 +366,11 @@ def main() -> None:
     print(f"serving throughput at bucket 256: kernel path {256e3 / tk:.1f} clouds/s "
           f"({tk:.3f} ms/request; runs {tk1:.3f}, {tk2:.3f}), plain path {256e3 / tp:.1f} "
           f"clouds/s ({tp:.3f} ms/request; runs {tp1:.3f}, {tp2:.3f})", flush=True)
+
+    # -- the second path: training slim2 at full width -----------------------
+    t_train = time.perf_counter()
+    train_counts = train_phase(torch, dev, _build)["counts"]
+    print(f"training phase: {time.perf_counter() - t_train:.1f} s", flush=True)
 
     # -- each kernel against its plain version, at main-path shapes ----------
     results = {}
@@ -243,15 +440,60 @@ def main() -> None:
             ms=cuda_ms(torch, lambda: block_kernel.fused_apf_block(tokens, w_blk, heads), 5),
             plain_ms=cuda_ms(torch, lambda: block_kernel.reference_apf_block(tokens, w_blk, heads), 2),
         )
+
+        # The training path's attention: qkv as block 0 makes it from real
+        # tokens, a seeded bf16 cotangent for the backward.
+        qkv = linear(layer_norm(tokens, blk.norm1), blk.attention.qkv).contiguous()
+        ak = attention_kernel.mha_qkv(qkv, heads)
+        ap = attention_kernel.reference_mha_qkv(qkv, heads)
+        torch.cuda.synchronize()
+        d, r = rel_err(torch, ak, ap)
+        print(f"mha_qkv {tuple(qkv.shape)} heads {heads}: max|d| {d:.6g}, relative to max|ref| "
+              f"{r:.3g} (bound {BF16_REL_TOL:.3g})", flush=True)
+        if not r <= BF16_REL_TOL:
+            fail("mha_qkv disagrees with its plain version")
+        results["mha_qkv"] = dict(
+            max_abs_err=d,
+            ms=cuda_ms(torch, lambda: attention_kernel.mha_qkv(qkv, heads), 10),
+            plain_ms=cuda_ms(torch, lambda: attention_kernel.reference_mha_qkv(qkv, heads), 3),
+        )
+
+        g = torch.randn(ak.shape, generator=torch.Generator().manual_seed(SEED + 2))
+        g = g.to(dev, torch.bfloat16)
+        dk1 = attention_kernel.mha_qkv_bwd(qkv, g, heads)
+        dk2 = attention_kernel.mha_qkv_bwd(qkv, g, heads)
+        dp = attention_kernel.reference_mha_qkv_bwd(qkv, g, heads)
+        torch.cuda.synchronize()
+        if not torch.equal(dk1, dk2):
+            fail("mha_qkv_bwd: two runs on the same inputs are not bit-equal")
+        d, r = rel_err(torch, dk1, dp)
+        e = qkv.shape[-1] // 3
+        parts = [rel_err(torch, dk1[..., i * e:(i + 1) * e], dp[..., i * e:(i + 1) * e])[1]
+                 for i in range(3)]
+        print(f"mha_qkv_bwd {tuple(qkv.shape)}: max|d| {d:.6g}, relative to max|ref| {r:.3g}; "
+              f"dq, dk, dv each against its own max|ref| {', '.join(f'{p:.3g}' for p in parts)} "
+              f"(bound {BF16_REL_TOL:.3g}); two runs bit-equal", flush=True)
+        if not max([r] + parts) <= BF16_REL_TOL:
+            fail("mha_qkv_bwd disagrees with its plain version")
+        results["mha_qkv_bwd"] = dict(
+            max_abs_err=d,
+            ms=cuda_ms(torch, lambda: attention_kernel.mha_qkv_bwd(qkv, g, heads), 10),
+            plain_ms=cuda_ms(torch, lambda: attention_kernel.reference_mha_qkv_bwd(qkv, g, heads), 3),
+        )
     torch.cuda.synchronize()
 
     for name, res in results.items():
         print(f"time {name}: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms", flush=True)
+    launches = {**{k: counts[k] for k in ("fps", "knn", "group_encoder", "apf_block")},
+                **{k: train_counts[k] for k in ("mha_qkv", "mha_qkv_bwd")}}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[name], **results[name]}
+         "launches": launches[name], **results[name]}
         for name, (src, rep) in KERNELS.items()
     ]}
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "pointvit_tpu"))
+    if bad:
+        fail(f"the port imported JAX or the JAX package: {bad[:5]}")
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

@@ -1,4 +1,4 @@
-"""AdaptPointFormer (APF) at inference.
+"""AdaptPointFormer (APF).
 
 Counterpart of ``pointvit_tpu/models/apf.py``: FPS + Morton + kNN grouping
 → mini-PointNet group encoder → ``depth`` adapter ViT blocks → LayerNorm →
@@ -7,25 +7,38 @@ max over tokens → classification head. Module names follow the flax names
 weight bridge (:mod:`pointvit_tpu_torch.convert`) maps a JAX checkpoint one
 to one.
 
-This slice of the port serves: the forward is inference only, and
-``train=True`` raises. ``implementation=None`` runs the kernel wrappers
-(the CUDA kernels for CUDA tensors); ``'torch'`` runs every kernel's plain
-version on any device.
+``forward(points, train=True, generator=g)`` is the training forward:
+FPS starts at a random point of every cloud (drawn from ``g``), the group
+encoder and the head use batch statistics, and dropout and drop-path draw
+from ``g``. Random draws, in order: the FPS starts, each block's (see
+:meth:`APFBlock.forward_unfused`), the dropout after the max-pool, the
+head's two dropouts. Without a generator FPS starts at point 0, as the JAX
+model does without an 'fps' PRNG stream, and dropout draws from the
+default generator.
+
+Freezing is ``requires_grad``: :func:`apf_trainable_mask` names the
+trainable parameters with the JAX mask's patterns (``models/apf.py:137-164``)
+and :func:`pointvit_tpu_torch.train.trainer.set_trainable` (which
+``build_optimizer`` calls) applies them.
+
+``implementation=None`` runs the kernel wrappers (the CUDA kernels for CUDA
+tensors); ``'torch'`` runs every kernel's plain version on any device.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
 from pointvit_tpu_torch.nn.heads import ClassificationHead
-from pointvit_tpu_torch.nn.layers import layer_norm
+from pointvit_tpu_torch.nn.layers import Dropout, layer_norm
 from pointvit_tpu_torch.nn.pointnet import GroupFeatureEncoder
 from pointvit_tpu_torch.nn.vit import APFBlock
 from pointvit_tpu_torch.ops.block_kernel import LN_EPS
 from pointvit_tpu_torch.ops.group import apf_group
 
-__all__ = ["AdaptPointFormer", "APF_PRESETS", "apf_preset_config"]
+__all__ = ["AdaptPointFormer", "APF_PRESETS", "apf_preset_config", "apf_trainable_mask"]
 
 # The benchmark's preset table (bench.py:93-103): overrides of the APF ViT-B
 # configuration below. 'slim2' is the served default.
@@ -78,40 +91,55 @@ class AdaptPointFormer(nn.Module):
         self.npoint = npoint
         self.nsample = nsample
         self.dtype = dtype
-        # Dropout and stochastic depth act only in training (the next slice);
-        # the arguments are kept so a JAX model config builds the port model.
         self.dropout_rate = dropout_rate
         self.dropout_path_rate = dropout_path_rate
         self.implementation = implementation
         self.point_encoder = GroupFeatureEncoder(
             2 * in_channels, embedding_dim, encoder_second_width, dtype, implementation
         )
+        # Stochastic-depth schedule: linspace(0, rate, depth) (JAX apf.py:96).
+        dpr = np.linspace(0.0, dropout_path_rate, depth).tolist()
         self.blocks = nn.ModuleList(
-            APFBlock(embedding_dim, num_heads, adapter_bottleneck, dtype, implementation)
-            for _ in range(depth)
+            APFBlock(embedding_dim, num_heads, adapter_bottleneck, dtype, implementation,
+                     drop_path_rate=dpr[i], dropout_rate=dropout_rate)
+            for i in range(depth)
         )
         self.encoder_norm = nn.LayerNorm(embedding_dim, eps=LN_EPS)
+        self.dropout = Dropout(dropout_rate)
         self.head = ClassificationHead(embedding_dim, num_classes)
 
-    def forward(self, points: torch.Tensor, *, train: bool = False) -> torch.Tensor:
+    def forward(self, points: torch.Tensor, *, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         """points (B, N, in_channels) → logits (B, num_classes) in the model's
-        dtype. FPS starts at point 0 of every cloud, as the JAX model does
-        without an 'fps' PRNG stream."""
-        if train:
-            raise NotImplementedError(
-                "training is not ported yet: it is the next slice of the port "
-                "(APF training, with the attention forward and backward kernels)"
-            )
+        dtype."""
         if points.shape[-1] != self.in_channels:
             raise ValueError(
                 f"expected {self.in_channels} input channels, got {points.shape[-1]}"
             )
+        start = None
+        if train and generator is not None:
+            B, N = points.shape[:2]
+            start = torch.randint(0, N, (B,), generator=generator, device=generator.device)
         neighborhood, _ = apf_group(
-            points, points[..., :3], self.npoint, self.nsample, implementation=self.implementation
+            points, points[..., :3], self.npoint, self.nsample, start=start,
+            implementation=self.implementation,
         )
-        x = self.point_encoder(neighborhood)
+        x = self.point_encoder(neighborhood, train=train)
         for block in self.blocks:
-            x = block(x)
+            x = block(x, train=train, generator=generator)
         x = layer_norm(x, self.encoder_norm)
         x = x.amax(dim=-2)  # global max-pool over tokens
-        return self.head(x)
+        x = self.dropout(x, train=train, generator=generator)
+        return self.head(x, train=train, generator=generator)
+
+
+def apf_trainable_mask(model: nn.Module, *, reference_quirks: bool = False) -> set[str]:
+    """Names of the trainable APF parameters, by the JAX mask's patterns
+    (``pointvit_tpu/models/apf.py:137-164``): adapters, head, final norm and
+    point encoder train; the ViT trunk is frozen. With ``reference_quirks``
+    the adapters stay frozen too, as the reference's ``_freeze`` leaves them."""
+    if reference_quirks:
+        patterns = ("head", "encoder_norm", "point_encoder")
+    else:
+        patterns = ("adapter", "head", "encoder_norm", "point_encoder")
+    return {name for name, _ in model.named_parameters() if any(p in name for p in patterns)}

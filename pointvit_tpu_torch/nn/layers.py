@@ -1,12 +1,16 @@
 """Transformer building blocks of the APF block: attention, MLP, adapter,
-stochastic depth.
+dropout, stochastic depth, and train-mode BatchNorm.
 
 Counterparts of ``pointvit_tpu/nn/layers.py``. The modules hold the
 parameters (names as in the flax modules, so the weight bridge maps them one
-to one) and give the unfused plain forward in the input's dtype. At
-inference the APF block does not call these forwards: it runs its fused
-kernel chain over the same parameters (:mod:`pointvit_tpu_torch.nn.vit`).
+to one) and give the unfused forward in the input's dtype, which the APF
+block runs when it trains. At inference the block runs its fused kernel
+chain over the same parameters instead (:mod:`pointvit_tpu_torch.nn.vit`).
 Every LayerNorm uses eps 1e-6, the flax default.
+
+Randomness is explicit, as with flax's ``deterministic`` flag and PRNG
+streams: a forward is stochastic only with ``train=True``, and it draws from
+the ``torch.Generator`` it is given (the default generator when None).
 """
 
 from __future__ import annotations
@@ -15,13 +19,26 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pointvit_tpu_torch.ops.block_kernel import LN_EPS, reference_attention
+from pointvit_tpu_torch.ops.attention_kernel import fused_mha_qkv
+from pointvit_tpu_torch.ops.block_kernel import LN_EPS
 
-__all__ = ["Attention", "Mlp", "AdapterLayer", "DropPath", "layer_norm", "linear"]
+__all__ = [
+    "Attention",
+    "Mlp",
+    "AdapterLayer",
+    "Dropout",
+    "DropPath",
+    "batch_norm",
+    "layer_norm",
+    "linear",
+]
+
+BN_MOMENTUM = 0.9  # flax convention: r ← 0.9·r + 0.1·batch statistic
 
 
 def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
-    """``lin`` applied in x's dtype (parameters stay f32, as in flax)."""
+    """``lin`` applied in x's dtype (parameters stay f32, as in flax; their
+    gradients come back in f32)."""
     b = lin.bias.to(x.dtype) if lin.bias is not None else None
     return F.linear(x, lin.weight.to(x.dtype), b)
 
@@ -31,24 +48,97 @@ def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
     return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps).to(x.dtype)
 
 
+def batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d, *, train: bool) -> torch.Tensor:
+    """BatchNorm over the last axis with flax's conventions; the output keeps
+    x's dtype, statistics are f32.
+
+    At inference it normalises by the running statistics. In training it
+    takes the statistics over all leading axes, normalises by the *biased*
+    batch variance (E[x²] − E[x]², clipped at 0, as flax computes it) and
+    updates ``r ← 0.9·r + 0.1·stat`` with that same biased variance.
+    ``F.batch_norm(training=True)`` would update ``running_var`` with the
+    unbiased variance, so it is not used in training.
+    """
+    xf = x.float()
+    if not train:
+        y = F.batch_norm(xf, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                         training=False, eps=bn.eps)
+        return y.to(x.dtype)
+    dims = tuple(range(x.dim() - 1))
+    mean = xf.mean(dim=dims)
+    var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+    with torch.no_grad():
+        bn.running_mean.mul_(BN_MOMENTUM).add_(mean.detach(), alpha=1.0 - BN_MOMENTUM)
+        bn.running_var.mul_(BN_MOMENTUM).add_(var.detach(), alpha=1.0 - BN_MOMENTUM)
+    y = (xf - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
+    return y.to(x.dtype)
+
+
+def _uniform(shape, generator: torch.Generator | None, device: torch.device) -> torch.Tensor:
+    """U[0, 1) draws made on the generator's own device, then moved to
+    ``device`` (a CUDA generator draws on the card)."""
+    where = generator.device if generator is not None else device
+    return torch.rand(shape, generator=generator, device=where).to(device)
+
+
+class Dropout(nn.Module):
+    """Element-wise dropout like flax's ``nn.Dropout``: keep each element with
+    probability ``1 − rate`` and scale the kept ones by ``1/keep``."""
+
+    def __init__(self, rate: float = 0.0) -> None:
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, *, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        if self.rate == 0.0 or not train:
+            return x
+        keep = 1.0 - self.rate
+        mask = _uniform(x.shape, generator, x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+class DropPath(nn.Module):
+    """Stochastic depth: drop a sample's whole residual branch with
+    probability ``rate`` in training; identity otherwise."""
+
+    def __init__(self, rate: float = 0.0) -> None:
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, *, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        if self.rate == 0.0 or not train:
+            return x
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        mask = _uniform(shape, generator, x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 class Attention(nn.Module):
     """Multi-head self-attention with one packed ``qkv`` projection (with
-    bias) and an output ``proj``."""
+    bias) and an output ``proj``; the attention itself is
+    :func:`~pointvit_tpu_torch.ops.attention_kernel.fused_mha_qkv` (the
+    forward and backward kernels on the card)."""
 
-    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True) -> None:
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
+                 implementation: str | None = None) -> None:
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"dim={dim} is not a multiple of num_heads={num_heads}")
         self.num_heads = num_heads
+        self.implementation = implementation
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return linear(reference_attention(linear(x, self.qkv), self.num_heads), self.proj)
+        att = fused_mha_qkv(linear(x, self.qkv), self.num_heads, self.implementation)
+        return linear(att, self.proj)
 
 
 class Mlp(nn.Module):
-    """fc1 → exact GELU → fc2."""
+    """fc1 → exact GELU → fc2 (no dropout: the APF block passes none)."""
 
     def __init__(self, dim: int, hidden: int) -> None:
         super().__init__()
@@ -60,38 +150,24 @@ class Mlp(nn.Module):
 
 
 class AdapterLayer(nn.Module):
-    """APF bottleneck adapter: LN → down → ReLU → up → ×scale, plus its own
-    residual (the reference's internal add, kept as the JAX package keeps
-    it). ``up_proj`` starts at zero and ``scale`` at one, as in flax."""
+    """APF bottleneck adapter: LN → down → ReLU → dropout → up → ×scale, plus
+    its own residual (the reference's internal add, kept as the JAX package
+    keeps it). ``up_proj`` starts at zero and ``scale`` at one, as in flax."""
 
-    def __init__(self, dim: int, bottleneck: int = 64) -> None:
+    def __init__(self, dim: int, bottleneck: int = 64, dropout_rate: float = 0.0) -> None:
         super().__init__()
         self.adapter_norm = nn.LayerNorm(dim, eps=LN_EPS)
         self.down_proj = nn.Linear(dim, bottleneck)
+        self.dropout = Dropout(dropout_rate)
         self.up_proj = nn.Linear(bottleneck, dim)
         self.scale = nn.Parameter(torch.ones(1))
         nn.init.zeros_(self.down_proj.bias)
         nn.init.zeros_(self.up_proj.weight)
         nn.init.zeros_(self.up_proj.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         h = torch.relu(linear(layer_norm(x, self.adapter_norm), self.down_proj))
+        h = self.dropout(h, train=train, generator=generator)
         h = linear(h, self.up_proj) * self.scale.to(x.dtype)
         return h + x
-
-
-class DropPath(nn.Module):
-    """Stochastic depth: drop a sample's whole residual branch with
-    probability ``rate`` during training; identity otherwise."""
-
-    def __init__(self, rate: float = 0.0) -> None:
-        super().__init__()
-        self.rate = rate
-
-    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
-        if self.rate == 0.0 or not self.training:
-            return x
-        keep = 1.0 - self.rate
-        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = torch.rand(shape, generator=generator, device=x.device) < keep
-        return torch.where(mask, x / keep, torch.zeros_like(x))

@@ -13,7 +13,9 @@ Counterpart of ``pointvit_tpu/nn/pointnet.py::GroupFeatureEncoder``
 BatchNorms fold into the products and the encoder runs
 :func:`~pointvit_tpu_torch.ops.encoder_kernel.fused_group_encoder` (the
 kernel chain on the card) or, with ``implementation='torch'``, its plain
-version.
+version. In training it runs the unfolded body in plain PyTorch with batch
+statistics, as the JAX encoder refuses its fused kernel when ``train``
+(``nn/pointnet.py:54-56``).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from pointvit_tpu_torch.nn.layers import batch_norm, linear
 from pointvit_tpu_torch.ops.encoder_kernel import (
     BN_EPS,
     fold_encoder_params,
@@ -60,13 +63,29 @@ class GroupFeatureEncoder(nn.Module):
         self.second_bn0 = bn(H)
         self.second_1 = nn.Linear(H, E)
 
-    def forward(self, groups: torch.Tensor) -> torch.Tensor:
-        """Inference forward: (B, G, K, C) → (B, G, E) in the encoder's dtype."""
+    def forward(self, groups: torch.Tensor, *, train: bool = False) -> torch.Tensor:
+        """(B, G, K, C) → (B, G, E) in the encoder's dtype."""
         B, G, K, C = groups.shape
-        weights = fold_encoder_params(self)
         x = groups.to(self.dtype).reshape(B * G, K, C)
-        if self.implementation == "torch":
-            out = reference_folded_encoder(x, weights)
+        if train:
+            out = self._body(x)
         else:
-            out = fused_group_encoder(x, weights)
+            weights = fold_encoder_params(self)
+            if self.implementation == "torch":
+                out = reference_folded_encoder(x, weights)
+            else:
+                out = fused_group_encoder(x, weights)
         return out.reshape(B, G, self.embed_dim)
+
+    def _body(self, x: torch.Tensor) -> torch.Tensor:
+        """Training body of ``nn/pointnet.py:90-132``, (M, K, C) → (M, E):
+        plain products, BatchNorms on batch statistics over all M·K rows."""
+        bn = lambda t, m: batch_norm(t, m, train=True)  # noqa: E731
+        x = torch.relu(bn(linear(x, self.first_0), self.first_bn0))
+        x = torch.relu(bn(linear(x, self.first_1), self.first_bn1))
+        x = linear(x, self.first_2)
+        g = x.amax(dim=-2, keepdim=True)  # (M, 1, E)
+        # concat([g, x]) @ W split in two: the global half runs once per group.
+        x = linear(g, self.second_0_global) + linear(x, self.second_0_local)
+        x = torch.relu(bn(x, self.second_bn0))
+        return linear(x, self.second_1).amax(dim=-2)

@@ -3,12 +3,16 @@
 Counterpart of ``pointvit_tpu/nn/vit.py::APFBlock``, with the reference's
 double residual (``nn/vit.py:153-226``)::
 
-    x   = x + attn(norm1(x))
-    out = mlp(norm2(x)) + adapter(x) + x      # adapter(x) adds x itself
+    x   = x + drop_path(attn(norm1(x)))
+    out = drop_path(mlp(norm2(x))) + adapter(x) + x     # adapter(x) adds x itself
 
 At inference the block runs :func:`~pointvit_tpu_torch.ops.block_kernel.fused_apf_block`
 (the kernel chain on the card) or, with ``implementation='torch'``, its
-plain version. Training is the next slice of the port.
+plain version. In training it leaves the fused block, as the JAX block does
+when dropout is on (``nn/vit.py:70-71``): LayerNorms and products are plain
+PyTorch, the attention is ``fused_mha_qkv`` (its forward and backward
+kernels on the card), and the adapter's dropout and both drop-paths draw
+from the generator given.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from pointvit_tpu_torch.nn.layers import AdapterLayer, Attention, Mlp, layer_norm
+from pointvit_tpu_torch.nn.layers import AdapterLayer, Attention, DropPath, Mlp, layer_norm
 from pointvit_tpu_torch.ops.block_kernel import (
     LN_EPS,
     apf_block_weights,
@@ -35,6 +39,8 @@ class APFBlock(nn.Module):
         adapter_bottleneck: int = 64,
         dtype: torch.dtype = torch.float32,
         implementation: str | None = None,
+        drop_path_rate: float = 0.0,
+        dropout_rate: float = 0.1,
     ) -> None:
         super().__init__()
         if implementation not in (None, "torch"):
@@ -43,21 +49,30 @@ class APFBlock(nn.Module):
         self.dtype = dtype
         self.implementation = implementation
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.attention = Attention(dim, num_heads)
+        self.attention = Attention(dim, num_heads, implementation=implementation)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp = Mlp(dim, 4 * dim)
-        self.adapter = AdapterLayer(dim, adapter_bottleneck)
+        self.adapter = AdapterLayer(dim, adapter_bottleneck, dropout_rate)
+        self.drop_path = DropPath(drop_path_rate)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Inference forward (B, S, E) → (B, S, E) in the block's dtype."""
-        weights = apf_block_weights(self)
+    def forward(self, x: torch.Tensor, *, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """(B, S, E) → (B, S, E) in the block's dtype."""
         x = x.to(self.dtype)
+        if train:
+            return self.forward_unfused(x, train=True, generator=generator)
+        weights = apf_block_weights(self)
         if self.implementation == "torch":
             return reference_apf_block(x, weights, self.num_heads)
         return fused_apf_block(x, weights, self.num_heads)
 
-    def forward_unfused(self, x: torch.Tensor) -> torch.Tensor:
-        """The same block through its layer modules, one plain op at a time."""
-        x = x + self.attention(layer_norm(x, self.norm1))
-        adapt = self.adapter(x)
-        return self.mlp(layer_norm(x, self.norm2)) + adapt + x
+    def forward_unfused(self, x: torch.Tensor, *, train: bool = False,
+                        generator: torch.Generator | None = None) -> torch.Tensor:
+        """The block through its layer modules, one plain op at a time (with
+        the attention kernels on the card). Random draws, in order: the
+        attention branch's drop-path, the adapter's dropout, the MLP
+        branch's drop-path."""
+        kw = dict(train=train, generator=generator)
+        x = x + self.drop_path(self.attention(layer_norm(x, self.norm1)), **kw)
+        adapt = self.adapter(x, **kw)
+        return self.drop_path(self.mlp(layer_norm(x, self.norm2)), **kw) + adapt + x

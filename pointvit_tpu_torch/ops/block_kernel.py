@@ -35,7 +35,9 @@ __all__ = [
     "layer_norm",
     "reference_layer_norm",
     "attention",
+    "launch_attention",
     "reference_attention",
+    "split_heads",
     "launches",
 ]
 
@@ -98,16 +100,17 @@ def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor) -> torc
 
 def reference_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     """Plain packed-qkv MHA. qkv (B, S, 3E) → (B, S, E) in qkv.dtype; f32
-    logits and softmax, P rounded to qkv.dtype before P·V."""
+    (f64 for f64 input) logits and softmax, P rounded to qkv.dtype before P·V."""
     B, S, E3 = qkv.shape
     E = E3 // 3
     D = E // num_heads
-    r = qkv.reshape(B, S, 3, num_heads, D).permute(2, 0, 3, 1, 4).float()
+    ct = torch.promote_types(qkv.dtype, torch.float32)
+    r = qkv.reshape(B, S, 3, num_heads, D).permute(2, 0, 3, 1, 4).to(ct)
     q, k, v = r[0], r[1], r[2]  # (B, H, S, D)
     logits = (q @ k.transpose(-1, -2)) * (D ** -0.5)
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits - m)
-    p = (p / p.sum(dim=-1, keepdim=True)).to(qkv.dtype).float()
+    p = (p / p.sum(dim=-1, keepdim=True)).to(qkv.dtype).to(ct)
     att = (p @ v).to(qkv.dtype)
     return att.transpose(1, 2).reshape(B, S, E)
 
@@ -115,14 +118,30 @@ def reference_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 def attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     """Packed-qkv MHA (B, S, 3E) → (B, S, E): kernel on CUDA (bf16, head
     dim 64), plain on CPU."""
+    if not qkv.is_cuda:
+        split_heads(qkv, num_heads)
+        return reference_attention(qkv, num_heads)
+    out = launch_attention(qkv, num_heads)
+    attn_launches.add()
+    return out
+
+
+def split_heads(qkv: torch.Tensor, num_heads: int) -> tuple[int, int, int, int]:
+    """(B, S, E, D) of a packed (B, S, 3E) qkv; raises on a width that does
+    not split into three times ``num_heads`` heads."""
+    if qkv.dim() != 3:
+        raise ValueError(f"qkv must be (B, S, 3E), got {tuple(qkv.shape)}")
     B, S, E3 = qkv.shape
     if E3 % 3 or (E3 // 3) % num_heads:
         raise ValueError(f"qkv width {E3} does not split into 3 x {num_heads} heads")
-    if not qkv.is_cuda:
-        return reference_attention(qkv, num_heads)
+    return B, S, E3 // 3, E3 // 3 // num_heads
+
+
+def launch_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """One launch of ``csrc/block.cu::attention_kernel`` on a CUDA tensor,
+    uncounted: each caller counts it under its own name."""
+    B, S, E, D = split_heads(qkv, num_heads)
     require(qkv, "qkv", torch.bfloat16, 3)
-    E = E3 // 3
-    D = E // num_heads
     limit = kernel("block", "pv_attention_max_seq", [INT])(D)
     if limit == 0 or S > limit:
         raise ValueError(
@@ -134,7 +153,6 @@ def attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     err = fn(qkv.data_ptr(), out.data_ptr(), B, S, num_heads, D, D ** -0.5,
              stream_ptr(qkv.device))
     check(err, "block", "pv_attention")
-    attn_launches.add()
     return out
 
 

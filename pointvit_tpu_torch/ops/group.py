@@ -25,6 +25,7 @@ def apf_group(
     num_group: int,
     group_size: int,
     *,
+    start: torch.Tensor | None = None,
     implementation: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Group features around FPS centres and serialise by Morton order.
@@ -34,6 +35,7 @@ def apf_group(
         xyz: (B, N, 3) coordinates for sampling and ordering.
         num_group: G centres.
         group_size: K neighbours per centre.
+        start: (B,) FPS start indices; None starts every cloud at index 0.
         implementation: None (kernel wrappers) or 'torch' (plain versions).
 
     Returns:
@@ -42,7 +44,7 @@ def apf_group(
         center (B, G, 3) Morton-ordered centres.
     """
     xyz = xyz.to(torch.float32).contiguous()
-    fps_idx = farthest_point_sample(xyz, num_group, implementation=implementation)
+    fps_idx = farthest_point_sample(xyz, num_group, start, implementation=implementation)
     center = fps_gather(xyz, fps_idx)
     order = morton_argsort(center)
     center = torch.gather(center, 1, order[..., None].expand(-1, -1, 3)).contiguous()

@@ -139,9 +139,16 @@ def test_bf16_model_tracks_f32(case):
 
 
 def test_train_raises_and_preset_is_slim2():
+    """``train=True`` runs: finite logits, and every BatchNorm's running
+    statistics move. A wrong channel count raises; the preset is slim2."""
     model = AdaptPointFormer(**CFG)
-    with pytest.raises(NotImplementedError, match="slice"):
-        model(torch.zeros(1, N_POINTS, 3), train=True)
+    before = {k: v.clone() for k, v in model.state_dict().items() if k.endswith("running_var")}
+    pts = torch.from_numpy(np.random.default_rng(2).standard_normal((4, N_POINTS, 3)).astype(np.float32))
+    logits = model(pts, train=True, generator=torch.Generator().manual_seed(0))
+    assert logits.shape == (4, CFG["num_classes"]) and torch.isfinite(logits).all()
+    assert len(before) == 5
+    for k, v in before.items():
+        assert not torch.equal(model.state_dict()[k], v), k
     with pytest.raises(ValueError, match="channels"):
         model(torch.zeros(1, N_POINTS, 4))
     cfg = apf_preset_config("slim2")

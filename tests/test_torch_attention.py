@@ -1,0 +1,117 @@
+"""Port parity: packed-qkv attention forward and backward of
+``pointvit_tpu_torch`` against the JAX package's Pallas kernels, on the CPU.
+
+The JAX side runs ``_mha_qkv_pallas`` and ``_mha_qkv_bwd_pallas`` in
+interpret mode; the port's wrappers take their plain versions for CPU
+tensors. In f32 the two differ only in summation order (≤ 1e-5 of the
+largest output); in bf16 both round at the same points, so they agree to a
+few bf16 steps (≤ 2^-6 of the largest output).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pointvit_tpu.ops.pallas_attention import _mha_qkv_bwd_pallas, _mha_qkv_pallas
+from pointvit_tpu_torch import _build
+from pointvit_tpu_torch.ops import attention_kernel
+
+REL_TOL = 1e-5
+BF16_REL_TOL = 2.0**-6
+H, D = 2, 16
+T = torch.from_numpy
+
+
+def _case(seed, B, S):
+    rng = np.random.default_rng(seed)
+    qkv = (2.0 * rng.standard_normal((B, S, 3 * H * D))).astype(np.float32)
+    g = rng.standard_normal((B, S, H * D)).astype(np.float32)
+    return qkv, g
+
+
+def _assert_rel(got, want, tol):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err <= tol, f"max|d| / max|ref| = {err:.3g} > {tol:.3g}"
+
+
+@pytest.mark.parametrize("S", [16, 20])
+def test_forward_matches_pallas_interpret(S):
+    qkv, _ = _case(S, 3, S)
+    with jax.default_matmul_precision("highest"):
+        want = _mha_qkv_pallas(jnp.asarray(qkv), H, interpret=True)
+    got = attention_kernel.fused_mha_qkv(T(qkv), H)
+    assert got.dtype == torch.float32
+    _assert_rel(got, want, REL_TOL)
+    torch.testing.assert_close(attention_kernel.mha_qkv(T(qkv), H), got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("S", [16, 20])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_backward_matches_pallas_interpret(S, dtype):
+    qkv, g = _case(100 + S, 2, S)
+    if dtype == "f32":
+        with jax.default_matmul_precision("highest"):
+            want = _mha_qkv_bwd_pallas(jnp.asarray(qkv), jnp.asarray(g), H, interpret=True)
+        got = attention_kernel.reference_mha_qkv_bwd(T(qkv), T(g), H)
+        assert got.dtype == torch.float32
+        _assert_rel(got, want, REL_TOL)
+    else:
+        want = _mha_qkv_bwd_pallas(jnp.asarray(qkv, jnp.bfloat16), jnp.asarray(g, jnp.bfloat16), H,
+                                   interpret=True)
+        got = attention_kernel.reference_mha_qkv_bwd(T(qkv).bfloat16(), T(g).bfloat16(), H)
+        assert got.dtype == torch.bfloat16
+        _assert_rel(got.float(), np.asarray(want.astype(jnp.float32)), BF16_REL_TOL)
+    torch.testing.assert_close(attention_kernel.mha_qkv_bwd(T(qkv), T(g), H),
+                               attention_kernel.reference_mha_qkv_bwd(T(qkv), T(g), H),
+                               rtol=0, atol=0)
+
+
+def test_backward_casts_g_to_the_compute_dtype():
+    """g arrives in f32 from an f32 loss; like pallas_attention.py:427 the
+    backward rounds it to qkv's dtype first."""
+    qkv, g = _case(7, 2, 16)
+    qb = T(qkv).bfloat16()
+    got = attention_kernel.reference_mha_qkv_bwd(qb, T(g), H)
+    want = attention_kernel.reference_mha_qkv_bwd(qb, T(g).bfloat16(), H)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_autograd_function_backward_is_the_exact_gradient_in_f64():
+    """In f64 the Function's CPU backward (the plain backward with its
+    rounding points, which are no-ops in f64) equals torch autograd through
+    the plain forward."""
+    qkv, g = _case(8, 2, 12)
+    x = T(qkv).double().requires_grad_()
+    out = attention_kernel.fused_mha_qkv(x, H)
+    (got,) = torch.autograd.grad(out, x, T(g).double())
+    y = x.detach().clone().requires_grad_()
+    (want,) = torch.autograd.grad(attention_kernel.reference_mha_qkv(y, H), y, T(g).double())
+    assert got.dtype == torch.float64
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("implementation", [None, "torch"])
+def test_function_saves_qkv_only_and_counts_no_cpu_launch(implementation):
+    qkv, g = _case(9, 2, 16)
+    x = T(qkv).requires_grad_()
+    _build.reset_launch_counts()
+    out = attention_kernel.fused_mha_qkv(x, H, implementation)
+    assert [t.data_ptr() for t in out.grad_fn.saved_tensors] == [x.data_ptr()]
+    out.backward(T(g))
+    _assert_rel(x.grad, attention_kernel.reference_mha_qkv_bwd(T(qkv), T(g), H), 0.0)
+    counts = _build.launch_counts()
+    assert counts["mha_qkv"] == 0 and counts["mha_qkv_bwd"] == 0
+
+
+def test_wrappers_refuse_bad_shapes():
+    with pytest.raises(ValueError, match="heads"):
+        attention_kernel.fused_mha_qkv(torch.zeros(1, 4, 30), 4)
+    with pytest.raises(ValueError, match="g must be"):
+        attention_kernel.mha_qkv_bwd(torch.zeros(1, 4, 96), torch.zeros(1, 5, 32), 2)
+    with pytest.raises(ValueError, match="implementation"):
+        attention_kernel.fused_mha_qkv(torch.zeros(1, 4, 96), 2, "xla")

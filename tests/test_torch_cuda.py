@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from pointvit_tpu_torch import _build
-from pointvit_tpu_torch.ops import block_kernel, encoder_kernel, fps_kernel, knn_kernel
+from pointvit_tpu_torch.ops import attention_kernel, block_kernel, encoder_kernel, fps_kernel, knn_kernel
 from pointvit_tpu_torch.ops.gemm_kernel import gemm, reference_gemm
 
 pytestmark = pytest.mark.cuda
@@ -106,6 +106,40 @@ def test_attention_refuses_other_head_dims_and_long_sequences(dev):
         block_kernel.attention(torch.zeros(1, 513, 3 * 768, device=dev, dtype=torch.bfloat16), 12)
 
 
+@pytest.mark.parametrize("S", [16, 65, 196, 416])
+def test_attention_backward_matches_its_plain_version_and_repeats_bit_for_bit(dev, S):
+    gen = torch.Generator().manual_seed(100 + S)
+    qkv = _rand(gen, 3, S, 3 * 768, dev=dev, scale=2.0)
+    g = _rand(gen, 3, S, 768, dev=dev)
+    got = attention_kernel.mha_qkv_bwd(qkv, g, 12)
+    want = attention_kernel.reference_mha_qkv_bwd(qkv, g, 12)
+    for i in range(3):  # dq, dk, dv each against its own scale
+        _assert_rel(got[..., i * 768 : (i + 1) * 768], want[..., i * 768 : (i + 1) * 768])
+    assert torch.equal(got, attention_kernel.mha_qkv_bwd(qkv, g, 12))
+
+
+def test_attention_backward_refuses_other_head_dims_and_long_sequences(dev):
+    with pytest.raises(ValueError, match="head_dim 64"):
+        attention_kernel.mha_qkv_bwd(torch.zeros(1, 16, 3 * 128, device=dev, dtype=torch.bfloat16),
+                                     torch.zeros(1, 16, 128, device=dev, dtype=torch.bfloat16), 4)
+    with pytest.raises(ValueError, match="head_dim 64"):
+        attention_kernel.mha_qkv_bwd(torch.zeros(1, 513, 3 * 768, device=dev, dtype=torch.bfloat16),
+                                     torch.zeros(1, 513, 768, device=dev, dtype=torch.bfloat16), 12)
+
+
+def test_attention_function_runs_both_kernels(dev):
+    gen = torch.Generator().manual_seed(5)
+    qkv = _rand(gen, 4, 196, 3 * 768, dev=dev).requires_grad_()
+    g = _rand(gen, 4, 196, 768, dev=dev)
+    _build.reset_launch_counts()
+    out = attention_kernel.fused_mha_qkv(qkv, 12)
+    out.backward(g)
+    counts = _build.launch_counts()
+    assert counts["mha_qkv"] == 1 and counts["mha_qkv_bwd"] == 1 and counts["attention"] == 0
+    _assert_rel(out, attention_kernel.reference_mha_qkv(qkv.detach(), 12))
+    _assert_rel(qkv.grad, attention_kernel.reference_mha_qkv_bwd(qkv.detach(), g, 12))
+
+
 def test_fps_selects_like_the_plain_version(dev):
     gen = torch.Generator().manual_seed(2)
     xyz = torch.randn(256, 1024, 3, generator=gen).to(dev)
@@ -155,3 +189,29 @@ def test_encoder_and_block_chains_and_their_launch_counts(dev):
     counts = _build.launch_counts()
     assert counts["group_encoder"] == 1 and counts["apf_block"] == 1
     assert counts["gemm"] == 6 + 6 and counts["layernorm"] == 3 and counts["attention"] == 1
+
+
+def test_apf_train_step_launches_the_training_kernels(dev):
+    from pointvit_tpu_torch.models import AdaptPointFormer, apf_trainable_mask
+    from pointvit_tpu_torch.train.trainer import set_trainable
+
+    cfg = dict(num_classes=15, embedding_dim=128, npoint=64, nsample=16, depth=2, num_heads=2,
+               encoder_second_width=64, dtype=torch.bfloat16)
+    torch.manual_seed(0)
+    model = AdaptPointFormer(**cfg).to(dev)
+    plain = AdaptPointFormer(**cfg, implementation="torch").to(dev)
+    plain.load_state_dict(model.state_dict())
+    for m in (model, plain):
+        set_trainable(m, apf_trainable_mask(m))
+    pts = torch.randn(8, 512, 3, generator=torch.Generator().manual_seed(1)).to(dev)
+    grads = []
+    for m in (model, plain):
+        _build.reset_launch_counts()
+        logits = m(pts, train=True, generator=torch.Generator(device=dev).manual_seed(2))
+        logits.float().logsumexp(-1).mean().backward()
+        counts = _build.launch_counts()
+        grads.append(m.point_encoder.first_0.weight.grad)
+        launched = {k for k in ("fps", "knn", "mha_qkv", "mha_qkv_bwd") if counts[k] > 0}
+        assert launched == ({"fps", "knn", "mha_qkv", "mha_qkv_bwd"} if m is model else set())
+    err = (grads[0] - grads[1]).norm() / grads[1].norm()
+    assert err <= 0.05, f"encoder gradient relative L2 error {err.item():.3g}"
