@@ -33,7 +33,18 @@
    kernels must each launch. Both paths are timed at bucket 256, and the
    kernel path's forward is split by CUDA events into tokenizer, P3 stage,
    12 blocks and head.
-5. Holds each kernel against its plain version on the card at the shapes
+5. Renderer serving: ``build_model`` of the ``train_renderer.py`` config
+   (vit_b_16: patch 16, E=768, 12 blocks x 12 heads, adapter bottleneck
+   64; 6 learned views of 224 x 224, so S = 196 + cls = 197 per view; 15
+   classes; bf16) at full width and depth with seeded random weights (the
+   adapters' up projections, view aggregation, cls token and pos too)
+   serves requests of 1, 5, 32 and 256 clouds of 2048 points scaled into
+   the unit sphere, on the kernel path and on the plain path; the logits
+   must agree as above, and the serial-block, GEMM, LayerNorm and attention
+   kernels must each launch. Both paths are timed at bucket 256, and the
+   kernel path's forward is split by CUDA events into the view network,
+   the render, patchify + pos, the 12 blocks and LN + aggregation + head.
+6. Holds each kernel against its plain version on the card at the shapes
    the main paths give it, and times both, beside the least time the card
    could take (``bound_ms``: the larger of the FLOPs over the H100's peak
    rate for their type and the bytes each input is read and each output
@@ -45,7 +56,7 @@ It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero; without a CUDA device it exits 1 before doing anything. It imports
 nothing of JAX and nothing of the JAX package ``pointvit_tpu``. The paths run
-at full depth; the whole run takes about a minute of command time.
+at full depth; the whole run takes a few minutes of command time at most.
 """
 
 from __future__ import annotations
@@ -110,6 +121,14 @@ P4P_CONFIG = {
 }
 P4P_POINTS, P4P_TOKENS = 2048, 512
 
+# Renderer serving: the model_config of train_renderer.py, in bf16.
+RENDERER_CONFIG = {
+    "num_classes": 15, "vit_name": "vit_b_16", "adapter_dim": 64, "num_views": 6,
+    "img_size": 224, "pretrained": True, "dropout_rate": 0.1, "diff_renderer": True,
+    "view_transform_hidden": 256, "bf16": True,
+}
+RENDERER_POINTS = 2048
+
 # The H100 SXM's published peaks (dense): the bound of a kernel is the larger
 # of its FLOPs over the rate for their type and its bytes over HBM's rate.
 PEAK_BF16, PEAK_F32, HBM_BPS = 989e12, 67e12, 3.35e12
@@ -124,12 +143,14 @@ KERNELS = {
                     "pointvit_tpu/ops/pallas_attention.py:399"),
     "p3_embed": ("pointvit_tpu_torch/csrc/gemm.cu", "pointvit_tpu/ops/pallas_encoder.py:235"),
     "vit_block": ("pointvit_tpu_torch/csrc/block.cu", "pointvit_tpu/ops/pallas_block.py:338"),
+    "serial_block": ("pointvit_tpu_torch/csrc/gemm.cu", "pointvit_tpu/ops/pallas_block.py:508"),
 }
 # The counters each path must raise: the ports and the kernels they chain.
 SERVING_COUNTERS = ("fps", "knn", "group_encoder", "apf_block", "gemm", "layernorm", "attention")
 TRAINING_COUNTERS = ("fps", "knn", "mha_qkv", "mha_qkv_bwd")
 P4P_COUNTERS = ("fps", "knn", "p3_embed", "vit_block", "gemm", "layernorm", "pos_layernorm",
                 "attention")
+RENDERER_COUNTERS = ("serial_block", "gemm", "layernorm", "attention")
 
 
 def fail(msg: str) -> None:
@@ -426,6 +447,113 @@ def pix4point_phase(torch, dev, _build) -> dict:
     return {"counts": counts, "model": model, "points": pts}
 
 
+def unit_sphere(pts: np.ndarray) -> np.ndarray:
+    """Clouds centred and scaled into the unit sphere, as the dataset's
+    ``normalize: True``, so that every view holds the cloud."""
+    pts = pts - pts.mean(axis=1, keepdims=True)
+    return (pts / np.linalg.norm(pts, axis=-1).max(axis=1)[:, None, None]).astype(np.float32)
+
+
+def renderer_stages(torch, model, pts) -> tuple[dict, object]:
+    """One forward of the served renderer, split by CUDA events that hooks on
+    its own submodules record: view network (``view_transform_net``), render
+    (to entering ``vit.conv_proj``: the splat and the cast to bf16 RGB),
+    patchify + pos (to entering block 0), the blocks (to leaving the last),
+    head (final LN of the cls rows, view aggregation, ``classifier``).
+    Returns the stage times and block 0's input."""
+    vit = model.vit
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    record = lambda i: lambda *_: ev[i].record()  # noqa: E731
+    x0 = []
+
+    def block0_entered(_, args):
+        ev[3].record()
+        x0.append(args[0])
+
+    hooks = [model.view_transform_net.register_forward_pre_hook(record(0)),
+             model.view_transform_net.register_forward_hook(record(1)),
+             vit.conv_proj.register_forward_pre_hook(record(2)),
+             vit.encoder_layer[0].register_forward_pre_hook(block0_entered),
+             vit.encoder_layer[-1].register_forward_hook(record(4)),
+             model.classifier.register_forward_hook(record(5))]
+    try:
+        with torch.inference_mode():
+            model(pts)
+    finally:
+        for h in hooks:
+            h.remove()
+    torch.cuda.synchronize()
+    names = ("view_net", "render", "patchify_pos", "blocks", "head")
+    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}, x0[0]
+
+
+def renderer_phase(torch, dev, _build) -> dict:
+    """Renderer serving at full width and depth, kernel path against the
+    plain path; returns the launch counts, the kernel-path model and block
+    0's input at bucket 256."""
+    from pointvit_tpu_torch.models import build_model
+    from pointvit_tpu_torch.serve import InferenceSession
+
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(RENDERER_CONFIG)
+    randomize(torch, model, torch.Generator().manual_seed(SEED + 4))
+    zero = [n for n, p in model.named_parameters() if not p.detach().any()]
+    if zero:  # adapters' up projections, cls token, VTN heads start at zero
+        fail(f"renderer parameters left at zero by randomize: {zero[:5]}")
+    plain = build_model(RENDERER_CONFIG, implementation="torch")
+    plain.load_state_dict(model.state_dict())
+    sess = InferenceSession(model, device=dev)
+    psess = InferenceSession(plain, device=dev)
+    rng = np.random.default_rng(SEED + 4)
+    requests = [unit_sphere(rng.standard_normal((n, RENDERER_POINTS, 3))) for n in REQUESTS]
+    sess.warmup(requests[0][0])
+    torch.cuda.synchronize()
+
+    _build.reset_launch_counts()
+    served = [sess.predict_logits(r) for r in requests]
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    print(f"renderer launches during serving: {json.dumps(counts)}", flush=True)
+    want = [psess.predict_logits(r) for r in requests]
+    torch.cuda.synchronize()
+    got_all, want_all = np.concatenate(served), np.concatenate(want)
+    classes = RENDERER_CONFIG["num_classes"]
+    if got_all.shape != (sum(REQUESTS), classes) or not np.isfinite(got_all).all():
+        fail(f"renderer logits: shape {got_all.shape}, finite {np.isfinite(got_all).all()}")
+    agree = float((got_all.argmax(-1) == want_all.argmax(-1)).mean())
+    dlogit = float(np.abs(got_all - want_all).max())
+    scale = float(np.abs(want_all).max())
+    print(f"renderer serving: requests {list(REQUESTS)} of {RENDERER_POINTS} points: argmax "
+          f"agreement {agree:.4f} (need >= {ARGMAX_AGREEMENT}), max|dlogit| {dlogit:.6g} vs "
+          f"max|logit| {scale:.6g} (bound {LOGIT_REL_TOL} x max|logit|)", flush=True)
+    if agree < ARGMAX_AGREEMENT or dlogit > LOGIT_REL_TOL * scale:
+        fail("renderer kernel-path logits disagree with the plain path")
+    for name in RENDERER_COUNTERS:
+        if counts.get(name, 0) <= 0:
+            fail(f"the renderer serving path never launched the {name} kernel")
+
+    big = requests[-1]
+    tp1 = cuda_ms(torch, lambda: psess.predict_logits(big), 1)
+    tk1 = cuda_ms(torch, lambda: sess.predict_logits(big), 3)
+    tk2 = cuda_ms(torch, lambda: sess.predict_logits(big), 3)
+    tp2 = cuda_ms(torch, lambda: psess.predict_logits(big), 1)
+    tk, tp = (tk1 + tk2) / 2, (tp1 + tp2) / 2
+    print(f"renderer serving throughput at bucket 256 (kernel path 2 x 3 timed requests, plain "
+          f"path 2 x 1): kernel path {256e3 / tk:.1f} clouds/s ({tk:.3f} ms/request; runs "
+          f"{tk1:.3f}, {tk2:.3f}), plain path {256e3 / tp:.1f} clouds/s ({tp:.3f} ms/request; "
+          f"runs {tp1:.3f}, {tp2:.3f}); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    del psess, plain
+    torch.cuda.empty_cache()
+    pts = torch.from_numpy(big).to(dev)
+    renderer_stages(torch, model, pts)  # warm-up of the split forward
+    stages, x0 = renderer_stages(torch, model, pts)
+    print(f"renderer forward at bucket 256 by stage (CUDA events, ms): "
+          f"{json.dumps({k: round(v, 3) for k, v in stages.items()})}, sum "
+          f"{sum(stages.values()):.3f}", flush=True)
+    return {"counts": counts, "model": model, "x0": x0}
+
+
 def main() -> None:
     try:
         import torch
@@ -439,7 +567,7 @@ def main() -> None:
         from pointvit_tpu_torch.nn.layers import layer_norm, linear
         from pointvit_tpu_torch.ops import (
             attention_kernel, block_kernel, encoder_kernel, fps_kernel, knn_kernel, p3_kernel,
-            vit_block_kernel,
+            serial_block_kernel, vit_block_kernel,
         )
         from pointvit_tpu_torch.ops.fps import fps_gather
         from pointvit_tpu_torch.ops.group import apf_group, p3_group
@@ -519,6 +647,11 @@ def main() -> None:
     t_p4p = time.perf_counter()
     p4p = pix4point_phase(torch, dev, _build)
     print(f"pix4point phase: {time.perf_counter() - t_p4p:.1f} s", flush=True)
+
+    # -- the fourth path: renderer (vit_b_16, 6 learned views) serving -------
+    t_rend = time.perf_counter()
+    rend = renderer_phase(torch, dev, _build)
+    print(f"renderer phase: {time.perf_counter() - t_rend:.1f} s", flush=True)
 
     # -- each kernel against its plain version, at main-path shapes ----------
     def fps_phase(pts, S):
@@ -691,6 +824,35 @@ def main() -> None:
             max_abs_err=d, ms=cuda_ms(torch, lambda: block_kernel.attention(qkv5, vh), 10),
             plain_ms=cuda_ms(torch, lambda: block_kernel.reference_attention(qkv5, vh), 3),
             **bound(4.0 * Bp * Sp * Sp * Ep, nbytes(qkv5, a5)))
+
+        # The renderer: block 0 on the tokens the served model gave it.
+        x0 = rend["x0"]
+        rblk = rend["model"].vit.encoder_layer[0]
+        w_ser = serial_block_kernel.serial_block_weights(rblk, torch.bfloat16)
+        rh = rblk.num_heads
+        sk = serial_block_kernel.fused_serial_block(x0, w_ser, rh)
+        d = held("serial_block", sk, serial_block_kernel.reference_serial_block(x0, w_ser, rh),
+                 f"{tuple(x0.shape)} heads {rh}")
+        Br, Sr, Er = x0.shape
+        mats = sum(w.numel() for w in w_ser if w.dim() == 2)
+        results["serial_block"] = dict(
+            shape=f"{tuple(x0.shape)}, {rh} heads, bottleneck {w_ser[6].shape[0]}", max_abs_err=d,
+            ms=cuda_ms(torch, lambda: serial_block_kernel.fused_serial_block(x0, w_ser, rh), 3),
+            plain_ms=cuda_ms(torch, lambda: serial_block_kernel.reference_serial_block(x0, w_ser, rh),
+                             1),
+            **bound(2.0 * Br * Sr * mats + 4.0 * Br * Sr * Sr * Er, nbytes(x0, sk, *w_ser)),
+            library_ms=None)
+        del sk
+
+        # The S=197 attention inside that block, alone.
+        qkv197 = linear(layer_norm(x0, rblk.ln_1), rblk.self_attention.qkv).contiguous()
+        a197 = block_kernel.attention(qkv197, rh)
+        d = held("attention S=197", a197, block_kernel.reference_attention(qkv197, rh),
+                 f"{tuple(qkv197.shape)} heads {rh}")
+        att197 = dict(
+            max_abs_err=d, ms=cuda_ms(torch, lambda: block_kernel.attention(qkv197, rh), 5),
+            plain_ms=cuda_ms(torch, lambda: block_kernel.reference_attention(qkv197, rh), 1),
+            **bound(4.0 * Br * Sr * Sr * Er, nbytes(qkv197, a197)))
     torch.cuda.synchronize()
 
     # One PyTorch call computing the same function, timed only (the port
@@ -704,6 +866,9 @@ def main() -> None:
     results["mha_qkv"]["library_ms"] = cuda_ms(torch, lambda: sdpa(q, k, v), 10)
     q5, k5, v5 = heads_of(qkv5, vh)
     att513["library_ms"] = cuda_ms(torch, lambda: sdpa(q5, k5, v5), 10)
+    q197, k197, v197 = heads_of(qkv197, rh)
+    att197["library_ms"] = cuda_ms(torch, lambda: sdpa(q197, k197, v197), 5)
+    del q197, k197, v197
     q, k, v = (t.clone().requires_grad_() for t in (q, k, v))
     out = sdpa(q, k, v)
     go = g.clone().reshape(B, G, heads, -1).transpose(1, 2).contiguous()
@@ -721,7 +886,8 @@ def main() -> None:
     for name, res in results.items():
         print(f"time {name} at {res['shape']}: {fmt(res)}", flush=True)
     print(f"time attention S=513 {tuple(qkv5.shape)} heads {vh}: {fmt(att513)}", flush=True)
-    paths = (counts, train_counts, p4p["counts"])
+    print(f"time attention S=197 {tuple(qkv197.shape)} heads {rh}: {fmt(att197)}", flush=True)
+    paths = (counts, train_counts, p4p["counts"], rend["counts"])
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(c.get(name, 0) for c in paths), **results[name]}

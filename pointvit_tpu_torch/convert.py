@@ -5,10 +5,16 @@
 nested dicts of numpy arrays and copies it into the matching port module:
 
 - a Dense ``kernel`` (in, out) becomes ``Linear.weight`` = kernel.T;
+- a conv ``kernel`` (kh, kw, cin, out), the renderer's patchify, becomes
+  the 2-D weight kernel.reshape(kh·kw·cin, out).T, columns in the (kh, kw,
+  cin) order in which the patches are flattened (a plain ``.T`` would give
+  (out, cin, kw, kh): a ``Conv2d`` weight's shape with the spatial axes
+  swapped);
 - a LayerNorm or BatchNorm ``scale`` becomes ``weight`` (the adapter's own
   ``scale`` parameter, shape (1,), keeps its name);
 - BatchNorm ``mean``/``var`` become ``running_mean``/``running_var``;
-- ``blocks_{i}`` becomes ``blocks.{i}``.
+- ``blocks_{i}`` becomes ``blocks.{i}`` and ``encoder_layer_{i}``
+  becomes ``encoder_layer.{i}``.
 
 Any key missing on either side, or a shape that disagrees, raises.
 """
@@ -34,7 +40,7 @@ def _flatten(tree, prefix=()):
 
 
 def _module_path(parts) -> str:
-    return ".".join(re.sub(r"^blocks_(\d+)$", r"blocks.\1", p) for p in parts)
+    return ".".join(re.sub(r"^(blocks|encoder_layer)_(\d+)$", r"\1.\2", p) for p in parts)
 
 
 def flax_to_state_dict(variables, target_keys) -> dict[str, torch.Tensor]:
@@ -52,7 +58,8 @@ def flax_to_state_dict(variables, target_keys) -> dict[str, torch.Tensor]:
                     raise KeyError(f"unexpected batch_stats leaf {'/'.join(path)}")
                 name = _STATS[leaf]
             elif leaf == "kernel":
-                name, arr = "weight", arr.T
+                name = "weight"
+                arr = arr.reshape(-1, arr.shape[-1]).T if arr.ndim == 4 else arr.T
             elif leaf == "scale":
                 name = "scale" if f"{mod}.scale" in target_keys else "weight"
             else:

@@ -1,11 +1,18 @@
 // Tiled bf16 GEMM with f32 accumulation and a fused epilogue:
 //
-//   v   = A[M,K] . W[N,K]^T  (+ bias[n])  (+ res_scale * res[m / res_div, n])
+//   v   = A[M,K] . W[N,K]^T  (+ bias[n])
+//   pre[m, n]            = v                (bf16; optional: before the residual)
+//   v   = v (+ res_scale * res[m / res_div, n])
 //   v   = act(v)                            act: none | ReLU | exact-erf GELU
 //   out[m, n]            = v                (bf16 or f32; optional)
 //   gmax[m / group, n]   = max over the group's rows of v   (bf16; optional)
 //
-// It is the product engine of two TPU kernels, each as a short chain of
+// With pre, one launch yields both a branch's rounded value and the f32 sum
+// of that branch and the residual: the serial-adapter block needs bf16(y) as
+// its adapter's input and f32(x + y) as the residual that the adapter's
+// up-projection adds. Without pre, the arithmetic is the same as before.
+//
+// It is the product engine of these TPU kernels, each as a short chain of
 // launches of this one kernel:
 //   - pointvit_tpu/ops/pallas_encoder.py::_encoder_pallas (kernel _enc_kernel):
 //     the five folded mini-PointNet products. The group max over K rows gives
@@ -15,6 +22,10 @@
 //   - pointvit_tpu/ops/pallas_block.py::_apf_block_pallas (kernels
 //     _attn_half_kernel, _mlp_half_kernel): qkv, proj + residual, fc1 + GELU,
 //     adapter down + ReLU, up + 2*x1, fc2 + the rest of the sum.
+//   - pointvit_tpu/ops/pallas_block.py::_serial_block_pallas (kernels
+//     _serial_attn_half_kernel, _serial_mlp_half_kernel): proj and fc2 each
+//     write bf16(y) and f32(x + y) through pre; the adapters' up-projections
+//     add that f32 residual, as the Pallas kernel's f32 sum (x + y) + a.
 //
 // What bounds it on the H100: at the main-path shapes (M = 50176 tokens or
 // 802816 grouped points, K and N of 256..3072) the products are compute
@@ -48,15 +59,20 @@ struct GemmArgs {
   const bf16* bias;
   const void* res;
   void* out;
+  bf16* pre;
   bf16* gmax;
-  int lda, ldw, ldr, ldo, ldg;
+  int lda, ldw, ldr, ldo, ldp, ldg;
   int M, N, K;
   int res_div, res_f32, out_f32, group, act;
   float res_scale;
 };
 
-__device__ __forceinline__ float epilogue(const GemmArgs& p, float v, int gr, int gc) {
-  if (p.bias) v += bf2f(p.bias[gc]);
+__device__ __forceinline__ float add_bias(const GemmArgs& p, float v, int gc) {
+  return p.bias ? v + bf2f(p.bias[gc]) : v;
+}
+
+// The residual and the activation, after the bias.
+__device__ __forceinline__ float finish(const GemmArgs& p, float v, int gr, int gc) {
   if (p.res) {
     const size_t ri = (size_t)(gr / p.res_div) * p.ldr + gc;
     const float r = p.res_f32 ? static_cast<const float*>(p.res)[ri]
@@ -69,6 +85,10 @@ __device__ __forceinline__ float epilogue(const GemmArgs& p, float v, int gr, in
     v = 0.5f * v * (1.f + erff(v * 0.7071067811865475f));
   }
   return v;
+}
+
+__device__ __forceinline__ float epilogue(const GemmArgs& p, float v, int gr, int gc) {
+  return finish(p, add_bias(p, v, gc), gr, gc);
 }
 
 __global__ __launch_bounds__(kThreads) void gemm_kernel(const GemmArgs p) {
@@ -157,7 +177,9 @@ __global__ __launch_bounds__(kThreads) void gemm_kernel(const GemmArgs p) {
     for (int e = tid; e < BM * BN; e += kThreads) {
       const int r = e / BN, c = e % BN, gr = m0 + r, gc = n0 + c;
       if (gr >= p.M || gc >= p.N) continue;
-      const float v = epilogue(p, Cs[r * CS + c], gr, gc);
+      float v = add_bias(p, Cs[r * CS + c], gc);
+      if (p.pre) p.pre[(size_t)gr * p.ldp + gc] = f2bf(v);
+      v = finish(p, v, gr, gc);
       const size_t o = (size_t)gr * p.ldo + gc;
       if (p.out_f32) {
         static_cast<float*>(p.out)[o] = v;
@@ -183,19 +205,21 @@ __global__ __launch_bounds__(kThreads) void gemm_kernel(const GemmArgs p) {
 
 extern "C" int pv_gemm(const void* A, int lda, const void* W, int ldw, const void* bias,
                        const void* res, int ldr, int res_div, int res_f32, float res_scale,
-                       void* out, int ldo, int out_f32, void* gmax, int ldg, int group, int M,
-                       int N, int K, int act, void* stream) {
+                       void* out, int ldo, int out_f32, void* pre, int ldp, void* gmax,
+                       int ldg, int group, int M, int N, int K, int act, void* stream) {
   GemmArgs p;
   p.A = static_cast<const bf16*>(A);
   p.W = static_cast<const bf16*>(W);
   p.bias = static_cast<const bf16*>(bias);
   p.res = res;
   p.out = out;
+  p.pre = static_cast<bf16*>(pre);
   p.gmax = static_cast<bf16*>(gmax);
   p.lda = lda;
   p.ldw = ldw;
   p.ldr = ldr;
   p.ldo = ldo;
+  p.ldp = ldp;
   p.ldg = ldg;
   p.M = M;
   p.N = N;

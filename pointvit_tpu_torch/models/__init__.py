@@ -1,5 +1,5 @@
-"""Model families of the port: APF and Pix4Point, and the factory that
-builds either from a reference-style config dict."""
+"""Model families of the port: APF, Pix4Point and the renderer classifier,
+and the factory that builds each from a reference-style config dict."""
 
 from pointvit_tpu_torch.models.apf import (
     APF_PRESETS,
@@ -9,13 +9,21 @@ from pointvit_tpu_torch.models.apf import (
 )
 from pointvit_tpu_torch.models.factory import build_model, detect_family
 from pointvit_tpu_torch.models.pix4point import VIT_PRESETS, PointViT, Pix4Point
+from pointvit_tpu_torch.models.renderer import (
+    TORCHVISION_VIT_PRESETS,
+    PointCloudRendererClassifier,
+    ViewTransformationNetwork,
+)
 
 __all__ = [
     "APF_PRESETS",
     "AdaptPointFormer",
+    "PointCloudRendererClassifier",
     "PointViT",
     "Pix4Point",
+    "TORCHVISION_VIT_PRESETS",
     "VIT_PRESETS",
+    "ViewTransformationNetwork",
     "apf_preset_config",
     "apf_trainable_mask",
     "build_model",

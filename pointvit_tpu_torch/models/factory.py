@@ -1,6 +1,6 @@
 """Model factory: one reference-style config dict → one module, per family.
 
-Counterpart of ``pointvit_tpu/models/factory.py`` (``:21-97``), construction
+Counterpart of ``pointvit_tpu/models/factory.py`` (``:21-111``), construction
 for construction, so a checkpoint's ``model_config`` rebuilds its
 architecture. ``bf16`` (default True) selects the compute dtype; parameters
 are always f32. ``implementation`` (None: kernel wrappers; 'torch': plain
@@ -80,5 +80,18 @@ def build_model(model_config: dict, family: str | None = None, *,
             **overrides,
         )
     if family == "renderer":
-        raise NotImplementedError("the renderer family is not ported yet (ROADMAP A9)")
+        from pointvit_tpu_torch.models.renderer import PointCloudRendererClassifier
+
+        return PointCloudRendererClassifier(
+            num_classes=model_config["num_classes"],
+            vit_name=model_config["vit_name"],
+            adapter_dim=model_config["adapter_dim"],
+            num_views=model_config["num_views"],
+            img_size=model_config["img_size"],
+            dropout_rate=model_config["dropout_rate"],
+            diff_renderer=model_config.get("diff_renderer", False),
+            view_transform_hidden=model_config.get("view_transform_hidden", 256),
+            dtype=dtype,
+            implementation=implementation,
+        )
     raise ValueError(f"unknown family {family!r}; expected one of {FAMILIES}")

@@ -1,10 +1,12 @@
-"""Classification heads of the APF and Pix4Point models.
+"""Classification heads of the APF, Pix4Point and renderer models.
 
 Counterparts of ``pointvit_tpu/nn/heads.py``: ``ClassificationHead`` (APF,
 E → 512 → 256 → classes, Dropout(0.4), ``heads.py:16-30``) and ``ClsHead``
-(Pix4Point, 2E → 256 → 256 → classes, Dropout(0.5), ``heads.py:33-51``).
-Each hidden layer is Linear → BatchNorm (eps 1e-5) → ReLU → Dropout, with
-submodules ``fc0, bn0, fc1, bn1, out``. At inference the BatchNorms use
+(Pix4Point, 2E → 256 → 256 → classes, Dropout(0.5), ``heads.py:33-51``):
+each hidden layer is Linear → BatchNorm (eps 1e-5) → ReLU → Dropout, with
+submodules ``fc0, bn0, fc1, bn1, out``. ``RendererHead`` (``heads.py:54-69``)
+is LayerNorm ``norm`` → ``fc0`` (512) → GELU → Dropout → ``fc1`` (256) →
+GELU → Dropout → ``out``. At inference the BatchNorms use
 their running statistics and the dropout is the identity; in training they
 use batch statistics with flax's conventions
 (:func:`~pointvit_tpu_torch.nn.layers.batch_norm`) and the dropout draws
@@ -15,11 +17,13 @@ compute dtype, as the JAX package leaves them to XLA.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from pointvit_tpu_torch.nn.layers import Dropout, batch_norm, linear
+from pointvit_tpu_torch.nn.layers import Dropout, batch_norm, layer_norm, linear
+from pointvit_tpu_torch.ops.block_kernel import LN_EPS
 
-__all__ = ["ClassificationHead", "ClsHead"]
+__all__ = ["ClassificationHead", "ClsHead", "RendererHead"]
 
 
 class ClassificationHead(nn.Module):
@@ -46,3 +50,24 @@ class ClsHead(ClassificationHead):
 
     def __init__(self, in_dim: int, num_classes: int) -> None:
         super().__init__(in_dim, num_classes, widths=(256, 256), dropout_rate=0.5)
+
+
+class RendererHead(nn.Module):
+    """Renderer classifier head: LN → 512 → GELU → 256 → GELU → classes,
+    Dropout(0.1) after each GELU."""
+
+    def __init__(self, in_dim: int, num_classes: int, dropout_rate: float = 0.1) -> None:
+        super().__init__()
+        self.norm = nn.LayerNorm(in_dim, eps=LN_EPS)
+        self.fc0 = nn.Linear(in_dim, 512)
+        self.fc1 = nn.Linear(512, 256)
+        self.out = nn.Linear(256, num_classes)
+        self.dropout = Dropout(dropout_rate)
+
+    def forward(self, x: torch.Tensor, *, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        x = layer_norm(x, self.norm)
+        for fc in (self.fc0, self.fc1):
+            h = F.gelu(linear(x, fc), approximate="none")
+            x = self.dropout(h, train=train, generator=generator)
+        return linear(x, self.out)

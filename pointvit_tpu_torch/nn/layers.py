@@ -1,5 +1,6 @@
-"""Transformer building blocks of the APF block: attention, MLP, adapter,
-dropout, stochastic depth, and train-mode BatchNorm.
+"""Transformer building blocks of the APF and serial-adapter blocks:
+attention, MLP, the two adapters, dropout, stochastic depth, and train-mode
+BatchNorm.
 
 Counterparts of ``pointvit_tpu/nn/layers.py``. The modules hold the
 parameters (names as in the flax modules, so the weight bridge maps them one
@@ -26,6 +27,7 @@ __all__ = [
     "Attention",
     "Mlp",
     "AdapterLayer",
+    "SimpleAdapter",
     "Dropout",
     "DropPath",
     "batch_norm",
@@ -171,3 +173,23 @@ class AdapterLayer(nn.Module):
         h = self.dropout(h, train=train, generator=generator)
         h = linear(h, self.up_proj) * self.scale.to(x.dtype)
         return h + x
+
+
+class SimpleAdapter(nn.Module):
+    """Serial adapter of the renderer's ViT blocks: x + up(gelu(down(x)))
+    (``pointvit_tpu/nn/layers.py:182-211``). ``down_proj`` starts as a tiny
+    Xavier-uniform matrix (gain 1e-3) with zero bias and ``up_proj`` at zero,
+    as in flax, so the adapter starts as the identity."""
+
+    def __init__(self, dim: int, bottleneck: int = 64) -> None:
+        super().__init__()
+        self.down_proj = nn.Linear(dim, bottleneck)
+        self.up_proj = nn.Linear(bottleneck, dim)
+        nn.init.xavier_uniform_(self.down_proj.weight, gain=1e-3)
+        nn.init.zeros_(self.down_proj.bias)
+        nn.init.zeros_(self.up_proj.weight)
+        nn.init.zeros_(self.up_proj.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.gelu(linear(x, self.down_proj), approximate="none")
+        return x + linear(h, self.up_proj)

@@ -1,4 +1,5 @@
-"""Transformer blocks: the APF block and the timm pre-norm ViT block.
+"""Transformer blocks (the APF block, the timm pre-norm ViT block, the
+torchvision block with serial adapters) and the renderer's image ViT.
 
 Counterpart of ``pointvit_tpu/nn/vit.py``. ``APFBlock`` has the reference's
 double residual (``nn/vit.py:153-226``)::
@@ -20,12 +21,25 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from pointvit_tpu_torch.nn.layers import AdapterLayer, Attention, DropPath, Mlp, layer_norm
+from pointvit_tpu_torch.nn.layers import (
+    AdapterLayer,
+    Attention,
+    DropPath,
+    Mlp,
+    SimpleAdapter,
+    layer_norm,
+)
 from pointvit_tpu_torch.ops.block_kernel import (
     LN_EPS,
     apf_block_weights,
     fused_apf_block,
     reference_apf_block,
+)
+from pointvit_tpu_torch.ops.gemm_kernel import gemm, reference_gemm
+from pointvit_tpu_torch.ops.serial_block_kernel import (
+    fused_serial_block,
+    reference_serial_block,
+    serial_block_weights,
 )
 from pointvit_tpu_torch.ops.vit_block_kernel import (
     fused_vit_block,
@@ -33,7 +47,7 @@ from pointvit_tpu_torch.ops.vit_block_kernel import (
     vit_block_weights,
 )
 
-__all__ = ["APFBlock", "ViTBlock"]
+__all__ = ["APFBlock", "ViTBlock", "SerialAdapterBlock", "PatchifyDense", "ImageViT"]
 
 
 class APFBlock(nn.Module):
@@ -127,3 +141,119 @@ class ViTBlock(nn.Module):
         if self.implementation == "torch":
             return reference_vit_block(x, weights, self.num_heads, pos)
         return fused_vit_block(x, weights, self.num_heads, pos)
+
+
+class SerialAdapterBlock(nn.Module):
+    """Torchvision encoder block with serial adapters (``ln_1``,
+    ``self_attention`` (``qkv``, ``proj``), ``adapter1``, ``ln_2``, ``mlp``
+    (``fc1``, ``fc2``), ``adapter2``), the renderer's per-view block
+    (``nn/vit.py:229-294``)::
+
+        y = self_attention(ln_1(x));  x = x + adapter1(y)
+        y = mlp(ln_2(x));             x = x + adapter2(y)
+
+    (each adapter is residual itself: a(y) = y + up(gelu(down(y)))). At
+    inference it runs
+    :func:`~pointvit_tpu_torch.ops.serial_block_kernel.fused_serial_block`:
+    on the card the kernel chain (head dim 64, S up to the attention
+    kernel's limit; other shapes raise), with ``implementation='torch'`` or
+    on the CPU its plain version. Training is not ported yet.
+    """
+
+    def __init__(self, dim: int, num_heads: int, adapter_bottleneck: int = 64,
+                 mlp_ratio: float = 4.0, dtype: torch.dtype = torch.float32,
+                 implementation: str | None = None) -> None:
+        super().__init__()
+        if implementation not in (None, "torch"):
+            raise ValueError(f"unknown implementation: {implementation!r}")
+        if mlp_ratio != 4.0:
+            raise ValueError("the serial block kernels take the torchvision hidden width 4·dim only")
+        self.num_heads = num_heads
+        self.dtype = dtype
+        self.implementation = implementation
+        self.ln_1 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.self_attention = Attention(dim, num_heads, implementation=implementation)
+        self.adapter1 = SimpleAdapter(dim, adapter_bottleneck)
+        self.ln_2 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.adapter2 = SimpleAdapter(dim, adapter_bottleneck)
+
+    def forward(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
+        """(B, S, E) → (B, S, E) in the block's dtype."""
+        if train:
+            raise NotImplementedError(
+                "SerialAdapterBlock(train=True) is not ported yet (ROADMAP A9: renderer training)")
+        x = x.to(self.dtype)
+        weights = serial_block_weights(self, self.dtype)
+        if self.implementation == "torch":
+            return reference_serial_block(x, weights, self.num_heads)
+        return fused_serial_block(x, weights, self.num_heads)
+
+
+class PatchifyDense(nn.Module):
+    """Stride-P patch embedding as one product over flattened patches
+    (``nn/vit.py:297-321``): NHWC images (B, H, W, C) → (B, patches, E),
+    patches in row-major order, each flattened in (ph, pw, c) order.
+    ``weight`` is (E, P·P·C) with its columns in that order: the flax conv
+    kernel (P, P, C, E) reshaped to (P·P·C, E) and transposed (the weight
+    bridge does this). The product is the bf16 GEMM with the bias in its
+    epilogue (``csrc/gemm.cu``) on the card, its plain version with
+    ``implementation='torch'`` or on the CPU."""
+
+    def __init__(self, embed_dim: int, patch_size: int, in_chans: int = 3,
+                 dtype: torch.dtype = torch.float32, implementation: str | None = None) -> None:
+        super().__init__()
+        self.patch_size = patch_size
+        self.dtype = dtype
+        self.implementation = implementation
+        self.weight = nn.Parameter(torch.empty(embed_dim, patch_size * patch_size * in_chans))
+        self.bias = nn.Parameter(torch.zeros(embed_dim))
+        nn.init.trunc_normal_(self.weight, std=self.weight.shape[1] ** -0.5)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        B, H, W, C = images.shape
+        P = self.patch_size
+        x = images.to(self.dtype).reshape(B, H // P, P, W // P, P, C).permute(0, 1, 3, 2, 4, 5)
+        x = x.reshape(B * (H // P) * (W // P), P * P * C).contiguous()
+        w, b = self.weight.to(self.dtype), self.bias.to(self.dtype)
+        product = reference_gemm if self.implementation == "torch" else gemm
+        out, _ = product(x, w, b, out_dtype=self.dtype)
+        return out.reshape(B, (H // P) * (W // P), -1)
+
+
+class ImageViT(nn.Module):
+    """Torchvision-layout image ViT returning the cls-token feature, the
+    renderer's trunk (``nn/vit.py:324-384``): ``conv_proj`` patchify → cls
+    token (``class_token``) prepended → ``+ pos_embedding`` in the compute
+    dtype → ``depth`` serial-adapter blocks (``encoder_layer.{i}``, the flax
+    ``encoder_layer_{i}``) → final LayerNorm ``ln`` → the cls row. NHWC
+    input, as in the JAX package."""
+
+    def __init__(self, depth: int = 12, embed_dim: int = 768, num_heads: int = 12,
+                 patch_size: int = 16, img_size: int = 224, adapter_bottleneck: int = 64,
+                 dtype: torch.dtype = torch.float32, implementation: str | None = None) -> None:
+        super().__init__()
+        self.dtype = dtype
+        self.conv_proj = PatchifyDense(embed_dim, patch_size, dtype=dtype,
+                                       implementation=implementation)
+        self.class_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
+        seq = (img_size // patch_size) ** 2 + 1
+        self.pos_embedding = nn.Parameter(0.02 * torch.randn(1, seq, embed_dim))
+        self.encoder_layer = nn.ModuleList(
+            SerialAdapterBlock(embed_dim, num_heads, adapter_bottleneck, dtype=dtype,
+                               implementation=implementation)
+            for _ in range(depth)
+        )
+        self.ln = nn.LayerNorm(embed_dim, eps=LN_EPS)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, C) → (B, E) in the compute dtype."""
+        x = self.conv_proj(images)
+        B, _, E = x.shape
+        x = torch.cat([self.class_token.expand(B, 1, E).to(x.dtype), x], dim=1)
+        x = x + self.pos_embedding.to(x.dtype)
+        for block in self.encoder_layer:
+            x = block(x)
+        # The LayerNorm is per row, so normalising the cls rows alone gives
+        # the same feature.
+        return layer_norm(x[:, 0], self.ln)

@@ -1,16 +1,24 @@
 """bf16 GEMM with a fused epilogue (``csrc/gemm.cu``): wrapper, launch
 counter and plain version.
 
-The product engine of the group-encoder and APF-block kernels
+The product engine of the encoder, P3-stage and block kernel chains
 (:mod:`~pointvit_tpu_torch.ops.encoder_kernel`,
-:mod:`~pointvit_tpu_torch.ops.block_kernel`). It computes, with f32
-accumulation and one rounding at the end::
+:mod:`~pointvit_tpu_torch.ops.p3_kernel`,
+:mod:`~pointvit_tpu_torch.ops.block_kernel`,
+:mod:`~pointvit_tpu_torch.ops.vit_block_kernel`,
+:mod:`~pointvit_tpu_torch.ops.serial_block_kernel`). It computes, with f32
+accumulation and one rounding per output::
 
-    v = a @ w.T (+ bias) (+ res_scale * res[row // res_div]);  v = act(v)
+    v = a @ w.T (+ bias)
+    pre_out[...] = v.to(bf16)                 # if pre_out is given
+    v = v (+ res_scale * res[row // res_div]);  v = act(v)
     out = v.to(out_dtype)                     # if out_dtype is not None
     gmax = max of v over each group of rows   # if group, bf16
 
 ``a`` is (M, K) and ``w`` is (N, K), the layout of ``torch.nn.Linear``.
+``pre_out`` is a second output that the caller allocates: one launch then
+gives a branch rounded to bf16 and the f32 sum of the branch and its
+residual, which the serial-adapter block needs from its proj and fc2.
 """
 
 from __future__ import annotations
@@ -39,12 +47,15 @@ def _activate(v: torch.Tensor, act: str) -> torch.Tensor:
 
 
 def reference_gemm(a, w, bias=None, *, act="none", res=None, res_scale=1.0, res_div=1,
-                   out_dtype=torch.bfloat16, group=0):
+                   out_dtype=torch.bfloat16, group=0, pre_out=None):
     """Plain torch version of :func:`gemm`: f32 products of the given
-    operands; ``gmax`` comes out in ``a``'s dtype (the kernel's is bf16)."""
+    operands; ``gmax`` comes out in ``a``'s dtype (the kernel's is bf16),
+    ``pre_out`` is written in its own dtype."""
     v = a.float() @ w.float().t()
     if bias is not None:
         v = v + bias.float()
+    if pre_out is not None:
+        pre_out.copy_(v)
     if res is not None:
         r = res.float()
         if res_div > 1:
@@ -59,20 +70,24 @@ def reference_gemm(a, w, bias=None, *, act="none", res=None, res_scale=1.0, res_
 
 
 def gemm(a, w, bias=None, *, act="none", res=None, res_scale=1.0, res_div=1,
-         out_dtype=torch.bfloat16, group=0):
-    """Fused GEMM; returns ``(out, gmax)``, either None when not asked for.
+         out_dtype=torch.bfloat16, group=0, pre_out=None):
+    """Fused GEMM; returns ``(out, gmax)``, either None when not asked for,
+    and writes ``pre_out`` when it is given.
 
     The CUDA kernel takes bf16 ``a``/``w``/``bias``, a bf16 or f32 ``res``,
-    K % 8 == 0, and a ``group`` that divides 128 and M. CPU tensors take the
-    plain version.
+    K % 8 == 0, a ``group`` that divides 128 and M, and a bf16 (M, N)
+    ``pre_out`` beside an ``out``. CPU tensors take the plain version.
     """
     if act not in _ACTS:
         raise ValueError(f"unknown act {act!r}")
     if out_dtype is None and not group:
         raise ValueError("nothing to compute: out_dtype is None and group is 0")
+    if pre_out is not None and out_dtype is None:
+        raise ValueError("pre_out is written beside out: out_dtype must not be None")
     if not a.is_cuda:
         return reference_gemm(a, w, bias, act=act, res=res, res_scale=res_scale,
-                              res_div=res_div, out_dtype=out_dtype, group=group)
+                              res_div=res_div, out_dtype=out_dtype, group=group,
+                              pre_out=pre_out)
     dev = a.device
     require(a, "a", torch.bfloat16, 2)
     require(w, "w", torch.bfloat16, 2, dev)
@@ -96,12 +111,17 @@ def gemm(a, w, bias=None, *, act="none", res=None, res_scale=1.0, res_div=1,
         raise ValueError(f"group={group} must divide {_TILE_M} and M={M}")
     if out_dtype not in (None, torch.bfloat16, torch.float32):
         raise ValueError(f"out_dtype must be bf16, f32 or None, got {out_dtype}")
+    if pre_out is not None:
+        require(pre_out, "pre_out", torch.bfloat16, 2, dev)
+        if pre_out.shape != (M, N):
+            raise ValueError(f"pre_out {tuple(pre_out.shape)} is not ({M}, {N})")
     out = torch.empty((M, N), dtype=out_dtype, device=dev) if out_dtype is not None else None
     gmax = torch.empty((M // group, N), dtype=torch.bfloat16, device=dev) if group else None
     fn = kernel("gemm", "pv_gemm", [
         PTR, INT, PTR, INT, PTR,                 # A, lda, W, ldw, bias
         PTR, INT, INT, INT, FLOAT,               # res, ldr, res_div, res_f32, res_scale
-        PTR, INT, INT, PTR, INT, INT,            # out, ldo, out_f32, gmax, ldg, group
+        PTR, INT, INT, PTR, INT,                 # out, ldo, out_f32, pre, ldp
+        PTR, INT, INT,                           # gmax, ldg, group
         INT, INT, INT, INT, PTR,                 # M, N, K, act, stream
     ])
     err = fn(
@@ -111,6 +131,7 @@ def gemm(a, w, bias=None, *, act="none", res=None, res_scale=1.0, res_div=1,
         int(res is not None and res.dtype == torch.float32), float(res_scale),
         out.data_ptr() if out is not None else None, N,
         int(out_dtype == torch.float32),
+        pre_out.data_ptr() if pre_out is not None else None, N,
         gmax.data_ptr() if gmax is not None else None, N, group,
         M, N, K, _ACTS[act], stream_ptr(dev),
     )

@@ -22,8 +22,9 @@ class InferenceSession:
     """A model in inference mode on ``device`` behind a bucket ladder.
 
     Args:
-        model: an ``AdaptPointFormer`` or ``Pix4Point`` (any module mapping
-            (B, N, C) float32 points to (B, classes) logits).
+        model: an ``AdaptPointFormer``, ``Pix4Point`` or
+            ``PointCloudRendererClassifier`` (any module mapping (B, N, C)
+            float32 points to (B, classes) logits).
         buckets: batch sizes to serve; requests pad to the smallest that fits.
         device: where the model and the requests run: the card unless the
             caller asks for another device (the CPU tests pass ``"cpu"``).

@@ -7,7 +7,8 @@ card and no JAX, run them without the JAX package's conftest:
 
 The shapes mix the main paths' (APF slim2: B=256, N=1024, G=196, K=16,
 E=768, 12 heads; Pix4Point vit_small: N=2048, S=512+1, K=16, E=384, 6
-heads) with ragged ones that exercise the kernels' edge masks.
+heads; the renderer's vit_b_16: S=196+1, E=768, 12 heads, bottleneck 64)
+with ragged ones that exercise the kernels' edge masks.
 bf16 tolerances are relative to the largest reference value: kernel and
 plain version round at the same points and differ only in f32 summation
 order, which moves a bf16 rounding by one step here and there.
@@ -24,6 +25,7 @@ from pointvit_tpu_torch.ops import (
     fps_kernel,
     knn_kernel,
     p3_kernel,
+    serial_block_kernel,
     vit_block_kernel,
 )
 from pointvit_tpu_torch.ops.gemm_kernel import gemm, reference_gemm
@@ -68,6 +70,24 @@ def test_gemm_epilogues(dev, M, K, N, epilogue):
     want, _ = reference_gemm(a, w, bias, **kw)
     assert got.dtype == want.dtype
     _assert_rel(got, want)
+
+
+@pytest.mark.parametrize("M,K,N", [(300, 64, 768), (4096, 768, 768), (520, 3072, 96)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_gemm_second_output_before_the_residual(dev, M, K, N, out_dtype):
+    gen = torch.Generator().manual_seed(M + K + N + 1)
+    a = _rand(gen, M, K, dev=dev)
+    w = _rand(gen, N, K, dev=dev, scale=K**-0.5)
+    bias = _rand(gen, N, dev=dev)
+    res = _rand(gen, M, N, dev=dev, dtype=torch.float32, scale=4.0)
+    pre = torch.empty(M, N, dtype=torch.bfloat16, device=dev)
+    got, _ = gemm(a, w, bias, res=res, out_dtype=out_dtype, pre_out=pre)
+    want_pre = torch.empty_like(pre)
+    want, _ = reference_gemm(a, w, bias, res=res, out_dtype=out_dtype, pre_out=want_pre)
+    _assert_rel(pre, want_pre)
+    _assert_rel(got, want)
+    plain, _ = gemm(a, w, bias, res=res, out_dtype=out_dtype)
+    assert torch.equal(got, plain)  # the second output changes nothing of the first
 
 
 def test_gemm_group_max_and_row_residual(dev):
@@ -324,5 +344,69 @@ def test_pix4point_serves_through_its_kernels(dev):
     for name in ("fps", "knn", "p3_embed", "vit_block", "gemm", "layernorm", "pos_layernorm",
                  "attention"):
         assert counts[name] > 0, name
+    err = abs(got - want).max() / abs(want).max()
+    assert err <= 0.05 and (got.argmax(-1) == want.argmax(-1)).mean() >= 0.75, err
+
+
+def _serial_weights(gen, E, bottleneck, dev):
+    from pointvit_tpu_torch.nn.vit import SerialAdapterBlock
+
+    blk = SerialAdapterBlock(E, E // 64, bottleneck)
+    with torch.no_grad():
+        for p in blk.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * (p.shape[-1] ** -0.5 if p.dim() == 2 else 0.2))
+        blk.ln_1.weight.add_(1.0)
+        blk.ln_2.weight.add_(1.0)
+    return serial_block_kernel.serial_block_weights(blk.to(dev), torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,S,E", [(8, 197, 768), (3, 50, 1024), (2, 65, 128)])
+def test_serial_block_chain_matches_its_plain_version(dev, B, S, E):
+    gen = torch.Generator().manual_seed(13 + S)
+    w = _serial_weights(gen, E, 64, dev)
+    x = _rand(gen, B, S, E, dev=dev)
+    _build.reset_launch_counts()
+    got = serial_block_kernel.fused_serial_block(x, w, E // 64)
+    counts = _build.launch_counts()
+    assert counts["serial_block"] == 1 and counts["gemm"] == 8 and counts["attention"] == 1
+    assert counts["layernorm"] == 2
+    _assert_rel(got, serial_block_kernel.reference_serial_block(x, w, E // 64))
+
+
+def test_serial_block_refuses_what_the_kernels_do_not_take(dev):
+    gen = torch.Generator().manual_seed(14)
+    w = _serial_weights(gen, 768, 64, dev)
+    with pytest.raises(ValueError, match="head_dim 64"):  # head dim 32
+        serial_block_kernel.fused_serial_block(_rand(gen, 1, 64, 768, dev=dev), w, 24)
+    with pytest.raises(ValueError, match="S ≤ 576"):
+        serial_block_kernel.fused_serial_block(_rand(gen, 1, 600, 768, dev=dev), w, 12)
+    with pytest.raises(ValueError, match="bf16"):
+        serial_block_kernel.fused_serial_block(_rand(gen, 1, 64, 768, dev=dev, dtype=torch.float32),
+                                               w, 12)
+
+
+def test_renderer_serves_through_its_kernels(dev, monkeypatch):
+    from pointvit_tpu_torch.models import build_model, renderer
+    from pointvit_tpu_torch.serve import InferenceSession
+
+    monkeypatch.setitem(renderer.TORCHVISION_VIT_PRESETS, "vit_b_16_depth2",
+                        dict(patch_size=16, embed_dim=768, depth=2, num_heads=12))
+    cfg = dict(num_classes=15, vit_name="vit_b_16_depth2", adapter_dim=64, num_views=6,
+               img_size=224, dropout_rate=0.1, diff_renderer=True, view_transform_hidden=256)
+    torch.manual_seed(0)
+    model = build_model(cfg)
+    plain = build_model(cfg, implementation="torch")
+    with torch.no_grad():  # live adapters: their up projections start at zero
+        for name, p in model.named_parameters():
+            if "up_proj" in name:
+                p.copy_(torch.randn(p.shape) * 0.1)
+    plain.load_state_dict(model.state_dict())
+    pts = torch.randn(4, 2048, 3, generator=torch.Generator().manual_seed(1))
+    pts = (pts / pts.norm(dim=-1).amax(dim=1)[:, None, None]).numpy()
+    _build.reset_launch_counts()
+    got = InferenceSession(model, buckets=(4,)).predict_logits(pts)
+    counts = _build.launch_counts()
+    want = InferenceSession(plain, buckets=(4,)).predict_logits(pts)
+    assert counts["serial_block"] == 2 and counts["attention"] == 2 and counts["gemm"] == 1 + 2 * 8
     err = abs(got - want).max() / abs(want).max()
     assert err <= 0.05 and (got.argmax(-1) == want.argmax(-1)).mean() >= 0.75, err
