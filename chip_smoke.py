@@ -44,13 +44,25 @@
    kernels must each launch. Both paths are timed at bucket 256, and the
    kernel path's forward is split by CUDA events into the view network,
    the render, patchify + pos, the 12 blocks and LN + aggregation + head.
-6. Holds each kernel against its plain version on the card at the shapes
+6. Quantized APF serving: the ``slim2`` model with ``quantized=True``
+   (dynamic w8a8: every encoder, qkv, proj, fc1 and fc2 product in int8)
+   on the weights of step 2 serves the same requests on the kernel path and
+   the plain path; the logits must agree as for the other models, the
+   quant-dense, FPS, kNN and attention kernels must launch and the fused
+   encoder and block must not. Its agreement with step 2's bf16 logits is
+   printed (no bound), both paths are timed at bucket 256 beside step 2's
+   kernel path, and the kernel path's forward is split by CUDA events into
+   tokenizer, encoder, 12 blocks and head.
+7. Holds each kernel against its plain version on the card at the shapes
    the main paths give it, and times both, beside the least time the card
    could take (``bound_ms``: the larger of the FLOPs over the H100's peak
    rate for their type and the bytes each input is read and each output
    written once over 3.35 TB/s) and, where one PyTorch call computes the
    same function, that call's time (``library_ms``; the port never calls
-   it).
+   it). The quant-dense kernel is held bit for bit at the eight int8
+   product shapes of quantized serving, on the inputs the served model gave
+   those layers, and timed beside ``torch._int_mm`` on the already
+   quantized operands (the int8 product alone) and the bf16 GEMM kernel.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``. Any failure exits
@@ -131,7 +143,7 @@ RENDERER_POINTS = 2048
 
 # The H100 SXM's published peaks (dense): the bound of a kernel is the larger
 # of its FLOPs over the rate for their type and its bytes over HBM's rate.
-PEAK_BF16, PEAK_F32, HBM_BPS = 989e12, 67e12, 3.35e12
+PEAK_BF16, PEAK_F32, PEAK_INT8, HBM_BPS = 989e12, 67e12, 1979e12, 3.35e12
 
 KERNELS = {
     "fps": ("pointvit_tpu_torch/csrc/fps.cu", "pointvit_tpu/ops/pallas_fps.py:78"),
@@ -144,6 +156,7 @@ KERNELS = {
     "p3_embed": ("pointvit_tpu_torch/csrc/gemm.cu", "pointvit_tpu/ops/pallas_encoder.py:235"),
     "vit_block": ("pointvit_tpu_torch/csrc/block.cu", "pointvit_tpu/ops/pallas_block.py:338"),
     "serial_block": ("pointvit_tpu_torch/csrc/gemm.cu", "pointvit_tpu/ops/pallas_block.py:508"),
+    "quant_dense": ("pointvit_tpu_torch/csrc/quant.cu", "pointvit_tpu/ops/pallas_quant.py:60"),
 }
 # The counters each path must raise: the ports and the kernels they chain.
 SERVING_COUNTERS = ("fps", "knn", "group_encoder", "apf_block", "gemm", "layernorm", "attention")
@@ -151,6 +164,25 @@ TRAINING_COUNTERS = ("fps", "knn", "mha_qkv", "mha_qkv_bwd")
 P4P_COUNTERS = ("fps", "knn", "p3_embed", "vit_block", "gemm", "layernorm", "pos_layernorm",
                 "attention")
 RENDERER_COUNTERS = ("serial_block", "gemm", "layernorm", "attention")
+# Quantized APF serving: the int8 products, the tokenizer and the attention
+# forward (B5, counted as mha_qkv) launch; the fused encoder and block do not.
+QUANT_COUNTERS = ("quant_dense", "fps", "knn", "mha_qkv")
+# The quantized paths differ only in the attention kernel's summation order,
+# and each int8 quantizer turns a one-step bf16 difference of a large input
+# into a one-step int8 difference. On an H100 80GB HBM3 (700 W) the served
+# bf16 logits of 3 of 294 clouds then change argmax, each a cloud whose two
+# top plain-path logits lie 1-2 bf16 steps apart (over 1 % of these clouds
+# tie exactly).
+# So argmax agreement is counted over the clouds that are not such ties:
+# top-2 gap above BF16_REL_TOL x max|logit| (2^-6 relative, a few bf16
+# steps; the two paths' logits differ by up to three).
+QUANT_UNUSED = ("apf_block", "group_encoder")
+# The int8 layers held in the quant-dense kernel phase (the encoder's and
+# block 0's), in the order of the forward; fc1 goes on the kernels line.
+QUANT_LAYERS = ("point_encoder.first_1", "point_encoder.first_2", "point_encoder.second_0_local",
+                "point_encoder.second_1", "blocks.0.attention.qkv", "blocks.0.attention.proj",
+                "blocks.0.mlp.fc1", "blocks.0.mlp.fc2")
+QUANT_LINE_LAYER = "blocks.0.mlp.fc1"
 
 
 def fail(msg: str) -> None:
@@ -554,6 +586,115 @@ def renderer_phase(torch, dev, _build) -> dict:
     return {"counts": counts, "model": model, "x0": x0}
 
 
+def apf_stages(torch, model, pts) -> dict:
+    """One forward of a served APF model, split by CUDA events that hooks on
+    the model and its own submodules record: tokenizer (FPS, Morton order,
+    kNN: to entering ``point_encoder``), encoder, blocks (to leaving the
+    last), head (final norm, pooling, head)."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    record = lambda i: lambda *_: ev[i].record()  # noqa: E731
+    hooks = [model.register_forward_pre_hook(record(0)),
+             model.point_encoder.register_forward_pre_hook(record(1)),
+             model.point_encoder.register_forward_hook(record(2)),
+             model.blocks[-1].register_forward_hook(record(3)),
+             model.register_forward_hook(record(4))]
+    try:
+        with torch.inference_mode():
+            model(pts)
+    finally:
+        for h in hooks:
+            h.remove()
+    torch.cuda.synchronize()
+    names = ("tokenizer", "encoder", "blocks", "head")
+    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+
+
+def quant_phase(torch, dev, _build, base, requests, base_logits, base_ms) -> dict:
+    """Quantized APF slim2 serving on ``base``'s weights (the bf16 serving
+    model), kernel path against the plain path; returns the launch counts,
+    the kernel-path model and the inputs its int8 layers got in one
+    bucket-256 forward."""
+    from pointvit_tpu_torch.models import AdaptPointFormer, apf_preset_config
+    from pointvit_tpu_torch.serve import InferenceSession
+
+    cfg = apf_preset_config("slim2", quantized=True)
+    model = AdaptPointFormer(**cfg)
+    plain = AdaptPointFormer(**cfg, implementation="torch")
+    model.load_state_dict(base.state_dict())
+    plain.load_state_dict(base.state_dict())
+    sess = InferenceSession(model, device=dev)
+    psess = InferenceSession(plain, device=dev)
+    sess.warmup(requests[0][0])  # also quantizes the weights, once
+    psess.warmup(requests[0][0])
+    torch.cuda.synchronize()
+
+    _build.reset_launch_counts()
+    served = [sess.predict_logits(r) for r in requests]
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    print(f"quantized launches during serving: {json.dumps(counts)}", flush=True)
+    want = [psess.predict_logits(r) for r in requests]
+    torch.cuda.synchronize()
+    got_all, want_all = np.concatenate(served), np.concatenate(want)
+    if got_all.shape != (sum(REQUESTS), cfg["num_classes"]) or not np.isfinite(got_all).all():
+        fail(f"quantized logits: shape {got_all.shape}, finite {np.isfinite(got_all).all()}")
+    same = got_all.argmax(-1) == want_all.argmax(-1)
+    dlogit = float(np.abs(got_all - want_all).max())
+    scale = float(np.abs(want_all).max())
+    top2 = np.sort(want_all, -1)[:, -2:]
+    gap = top2[:, 1] - top2[:, 0]
+    decided = gap > BF16_REL_TOL * scale
+    agree = float(same[decided].mean())
+    print(f"quantized serving: requests {list(REQUESTS)}: argmax agreement {same.mean():.4f} over "
+          f"all {same.size} clouds (top-2 plain-path gaps of the {int((~same).sum())} that differ: "
+          f"{[float(g) for g in gap[~same]]}), {agree:.4f} over the {int(decided.sum())} whose gap "
+          f"exceeds {BF16_REL_TOL * scale:.4g} (need >= {ARGMAX_AGREEMENT}); max|dlogit| "
+          f"{dlogit:.6g} vs max|logit| {scale:.6g} (bound {LOGIT_REL_TOL} x max|logit|)", flush=True)
+    if agree < ARGMAX_AGREEMENT or dlogit > LOGIT_REL_TOL * scale:
+        fail("quantized kernel-path logits disagree with the plain path")
+    for name in QUANT_COUNTERS:
+        if counts.get(name, 0) <= 0:
+            fail(f"the quantized serving path never launched the {name} kernel")
+    for name in QUANT_UNUSED:
+        if counts.get(name, 0):
+            fail(f"the quantized serving path launched the {name} kernel")
+    bf_agree = float((got_all.argmax(-1) == base_logits.argmax(-1)).mean())
+    bf_d = float(np.abs(got_all - base_logits).max())
+    print(f"quantized vs the bf16 kernel path (no bound): argmax agreement {bf_agree:.4f}, "
+          f"max|dlogit| {bf_d:.6g} vs max|logit| {float(np.abs(base_logits).max()):.6g}", flush=True)
+
+    big = requests[-1]
+    tp1 = cuda_ms(torch, lambda: psess.predict_logits(big), 2)
+    tk1 = cuda_ms(torch, lambda: sess.predict_logits(big), 5)
+    tk2 = cuda_ms(torch, lambda: sess.predict_logits(big), 5)
+    tp2 = cuda_ms(torch, lambda: psess.predict_logits(big), 2)
+    tk, tp = (tk1 + tk2) / 2, (tp1 + tp2) / 2
+    print(f"quantized serving throughput at bucket 256: kernel path {256e3 / tk:.1f} clouds/s "
+          f"({tk:.3f} ms/request; runs {tk1:.3f}, {tk2:.3f}), plain path {256e3 / tp:.1f} "
+          f"clouds/s ({tp:.3f} ms/request; runs {tp1:.3f}, {tp2:.3f}); the bf16 kernel path "
+          f"{256e3 / base_ms:.1f} clouds/s ({base_ms:.3f} ms/request)", flush=True)
+    del psess, plain
+    torch.cuda.empty_cache()
+    pts = torch.from_numpy(big).to(dev)
+    apf_stages(torch, model, pts)  # warm-up of the split forward
+    stages = apf_stages(torch, model, pts)
+    print(f"quantized forward at bucket 256 by stage (CUDA events, ms): "
+          f"{json.dumps({k: round(v, 3) for k, v in stages.items()})}, sum "
+          f"{sum(stages.values()):.3f}", flush=True)
+
+    layers = dict(model.named_modules())
+    inputs = {}
+    hooks = [layers[n].register_forward_pre_hook(lambda _, a, n=n: inputs.__setitem__(n, a[0]))
+             for n in QUANT_LAYERS]
+    try:
+        with torch.inference_mode():
+            model(pts)
+    finally:
+        for h in hooks:
+            h.remove()
+    return {"counts": counts, "model": model, "inputs": inputs}
+
+
 def main() -> None:
     try:
         import torch
@@ -567,8 +708,9 @@ def main() -> None:
         from pointvit_tpu_torch.nn.layers import layer_norm, linear
         from pointvit_tpu_torch.ops import (
             attention_kernel, block_kernel, encoder_kernel, fps_kernel, knn_kernel, p3_kernel,
-            serial_block_kernel, vit_block_kernel,
+            quant_kernel, serial_block_kernel, vit_block_kernel,
         )
+        from pointvit_tpu_torch.ops.gemm_kernel import gemm
         from pointvit_tpu_torch.ops.fps import fps_gather
         from pointvit_tpu_torch.ops.group import apf_group, p3_group
         from pointvit_tpu_torch.serve import InferenceSession
@@ -637,6 +779,11 @@ def main() -> None:
     print(f"serving throughput at bucket 256: kernel path {256e3 / tk:.1f} clouds/s "
           f"({tk:.3f} ms/request; runs {tk1:.3f}, {tk2:.3f}), plain path {256e3 / tp:.1f} "
           f"clouds/s ({tp:.3f} ms/request; runs {tp1:.3f}, {tp2:.3f})", flush=True)
+
+    # -- the fifth path: quantized (w8a8) slim2 serving on the same weights ---
+    t_quant = time.perf_counter()
+    quant = quant_phase(torch, dev, _build, model, requests, got_all, tk)
+    print(f"quantized phase: {time.perf_counter() - t_quant:.1f} s", flush=True)
 
     # -- the second path: training slim2 at full width -----------------------
     t_train = time.perf_counter()
@@ -853,6 +1000,43 @@ def main() -> None:
             max_abs_err=d, ms=cuda_ms(torch, lambda: block_kernel.attention(qkv197, rh), 5),
             plain_ms=cuda_ms(torch, lambda: block_kernel.reference_attention(qkv197, rh), 1),
             **bound(4.0 * Br * Sr * Sr * Er, nbytes(qkv197, a197)))
+
+        # Quantized serving: the int8 dense at its eight layers' shapes, on
+        # the inputs the served model gave them; bit-equal or fail.
+        qlayers = dict(quant["model"].named_modules())
+        quant_shapes = {}
+        for name in QUANT_LAYERS:
+            lin = qlayers[name]
+            wq, sw = lin.quantized_weight()
+            qb = lin.bias.detach() if lin.bias is not None else None
+            xl = quant["inputs"].pop(name)
+            xl = xl.reshape(-1, xl.shape[-1])
+            qk = quant_kernel.quant_dense(xl, wq, sw, qb)
+            qp = quant_kernel.reference_quant_dense(xl, wq, sw, qb)
+            torch.cuda.synchronize()
+            if not torch.equal(qk.view(torch.int16), qp.view(torch.int16)):
+                fail(f"quant_dense {name}: {(qk.view(torch.int16) != qp.view(torch.int16)).sum().item()}"
+                     f" outputs differ from the plain version")
+            del qp
+            Mq, Kq = xl.shape
+            Nq = wq.shape[0]
+            xq, _ = quant_kernel.quantize_rows(xl)
+            wt = wq.t()
+            w16 = lin.weight.detach().to(torch.bfloat16)
+            b16 = qb.to(torch.bfloat16) if qb is not None else None
+            quant_shapes[name] = dict(
+                shape=f"({Mq}, {Kq}) -> {Nq}", max_abs_err=0.0,
+                ms=cuda_ms(torch, lambda: quant_kernel.quant_dense(xl, wq, sw, qb), 10),
+                plain_ms=cuda_ms(torch, lambda: quant_kernel.reference_quant_dense(xl, wq, sw, qb), 2),
+                **bound(2.0 * Mq * Nq * Kq, nbytes(xl, wq, sw, qk) + (nbytes(qb) if qb is not None else 0),
+                        PEAK_INT8),
+                library_ms=cuda_ms(torch, lambda: torch._int_mm(xq, wt), 10),
+                gemm_ms=cuda_ms(torch, lambda: gemm(xl, w16, b16), 10))
+            print(f"quant_dense {name} {quant_shapes[name]['shape']}: bit-equal to its plain version",
+                  flush=True)
+            del xl, qk, xq
+        results["quant_dense"] = dict(quant_shapes[QUANT_LINE_LAYER])
+        del results["quant_dense"]["gemm_ms"]
     torch.cuda.synchronize()
 
     # One PyTorch call computing the same function, timed only (the port
@@ -887,7 +1071,11 @@ def main() -> None:
         print(f"time {name} at {res['shape']}: {fmt(res)}", flush=True)
     print(f"time attention S=513 {tuple(qkv5.shape)} heads {vh}: {fmt(att513)}", flush=True)
     print(f"time attention S=197 {tuple(qkv197.shape)} heads {rh}: {fmt(att197)}", flush=True)
-    paths = (counts, train_counts, p4p["counts"], rend["counts"])
+    for name, res in quant_shapes.items():
+        print(f"time quant_dense {name} {res['shape']}: {fmt(res)} (the int8 product alone, "
+              f"torch._int_mm); the bf16 GEMM kernel at this shape {res['gemm_ms']:.4f} ms",
+              flush=True)
+    paths = (counts, train_counts, p4p["counts"], rend["counts"], quant["counts"])
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(c.get(name, 0) for c in paths), **results[name]}

@@ -23,6 +23,12 @@ and :func:`pointvit_tpu_torch.train.trainer.set_trainable` (which
 
 ``implementation=None`` runs the kernel wrappers (the CUDA kernels for CUDA
 tensors); ``'torch'`` runs every kernel's plain version on any device.
+
+``quantized=True`` is the JAX package's serving mode: the encoder's and
+blocks' products (``first_1``, ``first_2``, ``second_0_local``,
+``second_1``, ``qkv``, ``proj``, ``fc1``, ``fc2``) run in dynamic w8a8 int8
+(:mod:`pointvit_tpu_torch.nn.quant`), the encoder and blocks unfused. It is
+inference-only: ``train=True`` raises.
 """
 
 from __future__ import annotations
@@ -85,6 +91,7 @@ class AdaptPointFormer(nn.Module):
         dtype: torch.dtype = torch.float32,
         encoder_second_width: int | None = None,
         implementation: str | None = None,
+        quantized: bool = False,
     ) -> None:
         super().__init__()
         self.in_channels = in_channels
@@ -94,14 +101,15 @@ class AdaptPointFormer(nn.Module):
         self.dropout_rate = dropout_rate
         self.dropout_path_rate = dropout_path_rate
         self.implementation = implementation
+        self.quantized = quantized
         self.point_encoder = GroupFeatureEncoder(
-            2 * in_channels, embedding_dim, encoder_second_width, dtype, implementation
+            2 * in_channels, embedding_dim, encoder_second_width, dtype, implementation, quantized
         )
         # Stochastic-depth schedule: linspace(0, rate, depth) (JAX apf.py:96).
         dpr = np.linspace(0.0, dropout_path_rate, depth).tolist()
         self.blocks = nn.ModuleList(
             APFBlock(embedding_dim, num_heads, adapter_bottleneck, dtype, implementation,
-                     drop_path_rate=dpr[i], dropout_rate=dropout_rate)
+                     drop_path_rate=dpr[i], dropout_rate=dropout_rate, quantized=quantized)
             for i in range(depth)
         )
         self.encoder_norm = nn.LayerNorm(embedding_dim, eps=LN_EPS)
@@ -116,6 +124,9 @@ class AdaptPointFormer(nn.Module):
             raise ValueError(
                 f"expected {self.in_channels} input channels, got {points.shape[-1]}"
             )
+        if self.quantized and train:
+            raise ValueError("quantized=True is an inference-only mode (int8 rounding has no "
+                             "useful gradient); construct with quantized=False for training")
         start = None
         if train and generator is not None:
             B, N = points.shape[:2]

@@ -42,11 +42,9 @@ def build_model(model_config: dict, family: str | None = None, *,
     if family == "apf":
         from pointvit_tpu_torch.models.apf import AdaptPointFormer
 
-        if model_config.get("quantized", False):
-            raise NotImplementedError("quantized=True is not ported yet (ROADMAP B10)")
         if model_config.get("remat_encoder", False):
             raise NotImplementedError("remat_encoder=True (recomputed encoder activations in "
-                                      "training) is not ported")
+                                      "training) is not ported (ROADMAP A12)")
         return AdaptPointFormer(
             num_classes=model_config["num_classes"],
             in_channels=model_config["in_channels"],
@@ -63,6 +61,7 @@ def build_model(model_config: dict, family: str | None = None, *,
             dtype=dtype,
             encoder_second_width=model_config.get("encoder_second_width"),
             implementation=implementation,
+            quantized=model_config.get("quantized", False),
         )
     if family == "pix4point":
         from pointvit_tpu_torch.models.pix4point import Pix4Point

@@ -5,8 +5,12 @@ BatchNorm.
 Counterparts of ``pointvit_tpu/nn/layers.py``. The modules hold the
 parameters (names as in the flax modules, so the weight bridge maps them one
 to one) and give the unfused forward in the input's dtype, which the APF
-block runs when it trains. At inference the block runs its fused kernel
-chain over the same parameters instead (:mod:`pointvit_tpu_torch.nn.vit`).
+block runs when it trains or is quantized. Otherwise, at inference, the
+block runs its fused kernel chain over the same parameters
+(:mod:`pointvit_tpu_torch.nn.vit`). With ``quantized=True`` the attention's
+``qkv`` and ``proj`` and the MLP's ``fc1`` and ``fc2`` are
+:class:`~pointvit_tpu_torch.nn.quant.QuantLinear` (dynamic w8a8), as in the
+JAX package; the adapters never are.
 Every LayerNorm uses eps 1e-6, the flax default.
 
 Randomness is explicit, as with flax's ``deterministic`` flag and PRNG
@@ -20,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pointvit_tpu_torch.nn.quant import QuantLinear, dense
 from pointvit_tpu_torch.ops.attention_kernel import fused_mha_qkv
 from pointvit_tpu_torch.ops.block_kernel import LN_EPS
 
@@ -40,7 +45,9 @@ BN_MOMENTUM = 0.9  # flax convention: r ← 0.9·r + 0.1·batch statistic
 
 def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
     """``lin`` applied in x's dtype (parameters stay f32, as in flax; their
-    gradients come back in f32)."""
+    gradients come back in f32); a ``QuantLinear`` runs its int8 product."""
+    if isinstance(lin, QuantLinear):
+        return lin(x)
     b = lin.bias.to(x.dtype) if lin.bias is not None else None
     return F.linear(x, lin.weight.to(x.dtype), b)
 
@@ -120,19 +127,20 @@ class DropPath(nn.Module):
 
 class Attention(nn.Module):
     """Multi-head self-attention with one packed ``qkv`` projection (with
-    bias) and an output ``proj``; the attention itself is
+    bias) and an output ``proj``, both int8 when ``quantized``; the
+    attention itself is
     :func:`~pointvit_tpu_torch.ops.attention_kernel.fused_mha_qkv` (the
     forward and backward kernels on the card)."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
-                 implementation: str | None = None) -> None:
+                 implementation: str | None = None, quantized: bool = False) -> None:
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"dim={dim} is not a multiple of num_heads={num_heads}")
         self.num_heads = num_heads
         self.implementation = implementation
-        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = dense(quantized, dim, 3 * dim, qkv_bias, implementation)
+        self.proj = dense(quantized, dim, dim, True, implementation)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         att = fused_mha_qkv(linear(x, self.qkv), self.num_heads, self.implementation)
@@ -140,12 +148,14 @@ class Attention(nn.Module):
 
 
 class Mlp(nn.Module):
-    """fc1 → exact GELU → fc2 (no dropout: the APF block passes none)."""
+    """fc1 → exact GELU → fc2 (no dropout: the APF block passes none); both
+    products int8 when ``quantized``."""
 
-    def __init__(self, dim: int, hidden: int) -> None:
+    def __init__(self, dim: int, hidden: int, quantized: bool = False,
+                 implementation: str | None = None) -> None:
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden)
-        self.fc2 = nn.Linear(hidden, dim)
+        self.fc1 = dense(quantized, dim, hidden, True, implementation)
+        self.fc2 = dense(quantized, hidden, dim, True, implementation)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return linear(F.gelu(linear(x, self.fc1), approximate="none"), self.fc2)

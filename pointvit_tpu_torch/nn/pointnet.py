@@ -16,7 +16,12 @@ BatchNorms fold into the products and the encoder runs
 kernel chain on the card) or, with ``implementation='torch'``, its plain
 version. In training it runs the unfolded body in plain PyTorch with batch
 statistics, as the JAX encoder refuses its fused kernel when ``train``
-(``nn/pointnet.py:54-56``).
+(``nn/pointnet.py:54-56``). With ``quantized=True`` (inference only)
+``first_1``, ``first_2``, ``second_0_local`` and ``second_1`` are
+:class:`~pointvit_tpu_torch.nn.quant.QuantLinear` and the encoder runs the
+same unfolded body with BatchNorm on its running statistics, as the JAX
+encoder refuses its fused kernel when quantized (``:55``); ``first_0``
+(depth C) and ``second_0_global`` (one row per group) stay plain products.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pointvit_tpu_torch.nn.layers import batch_norm, linear
+from pointvit_tpu_torch.nn.quant import dense
 from pointvit_tpu_torch.ops.encoder_kernel import (
     BN_EPS,
     fold_encoder_params,
@@ -50,6 +56,7 @@ class GroupFeatureEncoder(nn.Module):
         second_width: int | None = None,
         dtype: torch.dtype = torch.float32,
         implementation: str | None = None,
+        quantized: bool = False,
     ) -> None:
         super().__init__()
         if implementation not in (None, "torch"):
@@ -60,23 +67,25 @@ class GroupFeatureEncoder(nn.Module):
         self.second_width = H
         self.dtype = dtype
         self.implementation = implementation
+        self.quantized = quantized
         bn = lambda n: nn.BatchNorm1d(n, eps=BN_EPS, momentum=0.1)  # flax momentum 0.9
+        q = lambda i, o, bias=True: dense(quantized, i, o, bias, implementation)  # noqa: E731
         self.first_0 = nn.Linear(in_channels, 256)
         self.first_bn0 = bn(256)
-        self.first_1 = nn.Linear(256, 512)
+        self.first_1 = q(256, 512)
         self.first_bn1 = bn(512)
-        self.first_2 = nn.Linear(512, E)
+        self.first_2 = q(512, E)
         self.second_0_global = nn.Linear(E, H)
-        self.second_0_local = nn.Linear(E, H, bias=False)
+        self.second_0_local = q(E, H, bias=False)
         self.second_bn0 = bn(H)
-        self.second_1 = nn.Linear(H, E)
+        self.second_1 = q(H, E)
 
     def forward(self, groups: torch.Tensor, *, train: bool = False) -> torch.Tensor:
         """(B, G, K, C) → (B, G, E) in the encoder's dtype."""
         B, G, K, C = groups.shape
         x = groups.to(self.dtype).reshape(B * G, K, C)
-        if train:
-            out = self._body(x)
+        if train or self.quantized:
+            out = self._body(x, train=train)
         else:
             weights = fold_encoder_params(self)
             if self.implementation == "torch":
@@ -85,10 +94,11 @@ class GroupFeatureEncoder(nn.Module):
                 out = fused_group_encoder(x, weights)
         return out.reshape(B, G, self.embed_dim)
 
-    def _body(self, x: torch.Tensor) -> torch.Tensor:
-        """Training body of ``nn/pointnet.py:90-132``, (M, K, C) → (M, E):
-        plain products, BatchNorms on batch statistics over all M·K rows."""
-        bn = lambda t, m: batch_norm(t, m, train=True)  # noqa: E731
+    def _body(self, x: torch.Tensor, *, train: bool) -> torch.Tensor:
+        """The unfolded body of ``nn/pointnet.py:90-132``, (M, K, C) → (M, E),
+        layer by layer; BatchNorms on batch statistics over all M·K rows when
+        ``train``, else on their running statistics."""
+        bn = lambda t, m: batch_norm(t, m, train=train)  # noqa: E731
         x = torch.relu(bn(linear(x, self.first_0), self.first_bn0))
         x = torch.relu(bn(linear(x, self.first_1), self.first_bn1))
         x = linear(x, self.first_2)

@@ -13,7 +13,10 @@ plain version. In training it leaves the fused block, as the JAX block does
 when dropout is on (``nn/vit.py:70-71``): LayerNorms and products are plain
 PyTorch, the attention is ``fused_mha_qkv`` (its forward and backward
 kernels on the card), and the adapter's dropout and both drop-paths draw
-from the generator given.
+from the generator given. A quantized block (``quantized=True``, inference
+only) runs that unfused forward too, with its qkv, proj, fc1 and fc2 as
+int8 products, as the JAX block leaves its fused kernels when quantized
+(``nn/vit.py:181``).
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ class APFBlock(nn.Module):
         implementation: str | None = None,
         drop_path_rate: float = 0.0,
         dropout_rate: float = 0.1,
+        quantized: bool = False,
     ) -> None:
         super().__init__()
         if implementation not in (None, "torch"):
@@ -67,10 +71,12 @@ class APFBlock(nn.Module):
         self.num_heads = num_heads
         self.dtype = dtype
         self.implementation = implementation
+        self.quantized = quantized
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.attention = Attention(dim, num_heads, implementation=implementation)
+        self.attention = Attention(dim, num_heads, implementation=implementation,
+                                   quantized=quantized)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.mlp = Mlp(dim, 4 * dim)
+        self.mlp = Mlp(dim, 4 * dim, quantized, implementation)
         self.adapter = AdapterLayer(dim, adapter_bottleneck, dropout_rate)
         self.drop_path = DropPath(drop_path_rate)
 
@@ -78,8 +84,8 @@ class APFBlock(nn.Module):
                 generator: torch.Generator | None = None) -> torch.Tensor:
         """(B, S, E) → (B, S, E) in the block's dtype."""
         x = x.to(self.dtype)
-        if train:
-            return self.forward_unfused(x, train=True, generator=generator)
+        if train or self.quantized:
+            return self.forward_unfused(x, train=train, generator=generator)
         weights = apf_block_weights(self)
         if self.implementation == "torch":
             return reference_apf_block(x, weights, self.num_heads)

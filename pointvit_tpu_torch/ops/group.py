@@ -11,6 +11,11 @@ Counterpart of ``pointvit_tpu/ops/group.py``:
 - :func:`p3_group` (one Pix4Point P3Embed stage, ``group.py:137-182``): FPS
   centres and the kNN gather of points and features, with the grouped
   coordinates absolute unless ``relative_pos``.
+
+Both take the packed-key kNN kernel where the JAX package takes its Pallas
+kNN (lane-aligned N ≤ 2048, :func:`_packed_knn_ok`) and the exact top-k of
+:mod:`~pointvit_tpu_torch.ops.knn` for any other N, as the JAX package runs
+XLA there (``group.py:56-68``).
 """
 
 from __future__ import annotations
@@ -63,10 +68,11 @@ def apf_group(
     center = torch.gather(center, 1, order[..., None].expand(-1, -1, 3)).contiguous()
 
     feats = x.to(torch.float32).contiguous()
-    if implementation == "torch":
-        _, grouped = knn_kernel.reference_knn_group(xyz, center, feats, group_size)
+    if _packed_knn_ok(xyz.shape[1]):
+        group = knn_kernel.reference_knn_group if implementation == "torch" else knn_kernel.knn_group
+        _, grouped = group(xyz, center, feats, group_size)
     else:
-        _, grouped = knn_kernel.knn_group(xyz, center, feats, group_size)
+        grouped = knn_gather(feats, knn_indices(center, xyz, group_size))
     center_feat = grouped[:, :, :1, :]
     neighborhood = torch.cat(
         [grouped - center_feat, center_feat.expand_as(grouped)], dim=-1

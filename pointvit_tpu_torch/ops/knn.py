@@ -1,9 +1,10 @@
 """Exact k-nearest neighbours, plain torch.
 
 Counterpart of ``pointvit_tpu/ops/knn.py`` (matmul-form distances and an
-exact top-k). The APF grouping does not call these on its main path, which
-runs the packed-key kernel of :mod:`pointvit_tpu_torch.ops.knn_kernel`; the
-tests use them to hold the packed key against the exact top-k.
+exact top-k). The groupings of :mod:`pointvit_tpu_torch.ops.group` call
+these for point counts that the packed-key kernel of
+:mod:`pointvit_tpu_torch.ops.knn_kernel` does not take (N % 128 ≠ 0 or
+N > 2048), as the JAX package runs its XLA top-k there.
 """
 
 from __future__ import annotations

@@ -43,7 +43,9 @@ class InferenceSession:
         return self.model(x).float().cpu().numpy()
 
     def warmup(self, example: np.ndarray) -> None:
-        """Run every bucket once; ``example`` is one (N, C) cloud."""
+        """Run every bucket once; ``example`` is one (N, C) cloud. This also
+        fills the model's per-device caches (a quantized model's int8
+        weights), so the first request served does not build them."""
         for b in self.buckets:
             self._forward(np.broadcast_to(example, (b,) + tuple(example.shape)))
 

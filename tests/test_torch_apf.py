@@ -110,6 +110,20 @@ def test_logits_match_the_jax_model(case, implementation):
     assert err <= LOGIT_REL_TOL, err
 
 
+@pytest.mark.parametrize("n_points", [1000, 4096])
+def test_logits_match_the_jax_model_off_the_packed_knn(case, n_points):
+    """Clouds the packed-key kNN does not take (N % 128 ≠ 0, N > 2048) go
+    to the exact top-k, as in the JAX package; 4096 points raised before."""
+    _, jmodel, variables, model = case
+    points = np.random.default_rng(n_points).standard_normal((2, n_points, 3)).astype(np.float32)
+    with jax.default_matmul_precision("highest"):
+        want = np.asarray(jax.jit(lambda v, p: jmodel.apply(v, p, train=False))(variables, jnp.asarray(points)))
+    with torch.inference_mode():
+        got = model(torch.from_numpy(points)).numpy()
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err <= LOGIT_REL_TOL, err
+
+
 def test_session_padding_and_chunking_match_one_forward(case):
     points, _, _, model = case
     rng = np.random.default_rng(1)

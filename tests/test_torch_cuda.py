@@ -7,8 +7,9 @@ card and no JAX, run them without the JAX package's conftest:
 
 The shapes mix the main paths' (APF slim2: B=256, N=1024, G=196, K=16,
 E=768, 12 heads; Pix4Point vit_small: N=2048, S=512+1, K=16, E=384, 6
-heads; the renderer's vit_b_16: S=196+1, E=768, 12 heads, bottleneck 64)
-with ragged ones that exercise the kernels' edge masks.
+heads; the renderer's vit_b_16: S=196+1, E=768, 12 heads, bottleneck 64;
+quantized APF slim2: int8 products of M = 196·B token rows and 16·196·B
+grouped points) with ragged ones that exercise the kernels' edge masks.
 bf16 tolerances are relative to the largest reference value: kernel and
 plain version round at the same points and differ only in f32 summation
 order, which moves a bf16 rounding by one step here and there.
@@ -25,6 +26,7 @@ from pointvit_tpu_torch.ops import (
     fps_kernel,
     knn_kernel,
     p3_kernel,
+    quant_kernel,
     serial_block_kernel,
     vit_block_kernel,
 )
@@ -410,3 +412,93 @@ def test_renderer_serves_through_its_kernels(dev, monkeypatch):
     assert counts["serial_block"] == 2 and counts["attention"] == 2 and counts["gemm"] == 1 + 2 * 8
     err = abs(got - want).max() / abs(want).max()
     assert err <= 0.05 and (got.argmax(-1) == want.argmax(-1)).mean() >= 0.75, err
+
+
+def _quant_operands(gen, M, K, N, dtype, dev):
+    x = torch.randn(M, K, generator=gen) * 2.0
+    x[0], x[1], x[2] = 0.0, 1e-12, 1e6  # zero, tiny and huge rows
+    w = torch.randn(N, K, generator=gen) * K**-0.5
+    wq, sw = quant_kernel.quantize_weight(w.to(dev))
+    return x.to(dev, dtype), wq, sw, torch.randn(N, generator=gen).to(dev)
+
+
+@pytest.mark.parametrize("M,K,N", [(196, 768, 2304), (980, 768, 768), (8192, 3072, 768),
+                                   (6272 * 16, 256, 512), (100, 48, 40)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_quant_dense_is_bit_equal_to_its_plain_version(dev, M, K, N, dtype, with_bias):
+    gen = torch.Generator().manual_seed(M + K + N)
+    x, wq, sw, bias = _quant_operands(gen, M, K, N, dtype, dev)
+    bias = bias if with_bias else None
+    _build.reset_launch_counts()
+    got = quant_kernel.quant_dense(x, wq, sw, bias)
+    assert _build.launch_counts()["quant_dense"] == 1 and got.dtype == dtype
+    want = quant_kernel.reference_quant_dense(x, wq, sw, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                       want.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+    assert torch.equal(quant_kernel.quant_dense(x, wq, sw, bias, torch.float32),
+                       quant_kernel.reference_quant_dense(x, wq, sw, bias, torch.float32))
+
+
+def test_quantized_weights_on_the_card_equal_the_cpus(dev):
+    w = torch.randn(2304, 768, generator=torch.Generator().manual_seed(3)) * 0.03
+    w[5] = 0.0
+    wq, sw = quant_kernel.quantize_weight(w.to(dev))
+    cq, cs = quant_kernel.quantize_weight(w)
+    assert torch.equal(wq.cpu(), cq) and torch.equal(sw.cpu().view(torch.int32), cs.view(torch.int32))
+    x = torch.randn(512, 768, generator=torch.Generator().manual_seed(4))
+    xq, sx = quant_kernel.quantize_rows(x.to(dev))
+    cxq, csx = quant_kernel.quantize_rows(x)
+    assert torch.equal(xq.cpu(), cxq) and torch.equal(sx.cpu().view(torch.int32), csx.view(torch.int32))
+
+
+def test_quant_dense_refuses_what_it_does_not_take(dev):
+    gen = torch.Generator().manual_seed(5)
+    x, wq, sw, bias = _quant_operands(gen, 64, 96, 32, torch.bfloat16, dev)
+    with pytest.raises(ValueError, match="CUDA"):
+        quant_kernel.quant_dense(x, wq.cpu(), sw, bias)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        quant_kernel.quant_dense(x.half(), wq, sw, bias)
+    with pytest.raises(ValueError, match="int8"):
+        quant_kernel.quant_dense(x, wq.float(), sw, bias)
+    with pytest.raises(ValueError, match="K % 16"):
+        quant_kernel.quant_dense(x[:, :40].contiguous(), wq[:, :40].contiguous(), sw, bias)
+    with pytest.raises(ValueError, match="wq"):
+        quant_kernel.quant_dense(x, wq[:, :64].contiguous(), sw, bias)
+
+
+def test_quantized_block_runs_the_quant_and_attention_kernels(dev):
+    from pointvit_tpu_torch.nn.vit import APFBlock
+
+    gen = torch.Generator().manual_seed(6)
+    blk = APFBlock(768, 12, dtype=torch.bfloat16, quantized=True)
+    plain = APFBlock(768, 12, dtype=torch.bfloat16, quantized=True, implementation="torch")
+    with torch.no_grad():
+        for p in blk.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * (p.shape[-1] ** -0.5 if p.dim() == 2 else 0.2))
+    plain.load_state_dict(blk.state_dict())
+    blk, plain = blk.to(dev).eval(), plain.to(dev).eval()
+    x = _rand(gen, 4, 196, 768, dev=dev)
+    with torch.inference_mode():
+        _build.reset_launch_counts()
+        got = blk(x)
+        counts = _build.launch_counts()
+        want = plain(x)
+    assert counts["quant_dense"] == 4 and counts["mha_qkv"] == 1
+    assert counts["apf_block"] == 0 and counts["gemm"] == 0
+    _assert_rel(got, want)
+
+
+def test_apf_group_above_2048_points_takes_the_exact_topk(dev):
+    from pointvit_tpu_torch.ops.group import apf_group
+
+    pts = torch.randn(4, 4096, 3, generator=torch.Generator().manual_seed(7)).to(dev)
+    _build.reset_launch_counts()
+    neigh, center = apf_group(pts, pts, 196, 16)
+    counts = _build.launch_counts()
+    assert counts["fps"] == 1 and counts["knn"] == 0
+    assert neigh.shape == (4, 196, 16, 6) and center.shape == (4, 196, 3)
+    plain, _ = apf_group(pts, pts, 196, 16, implementation="torch")
+    torch.cuda.synchronize()
+    assert torch.equal(neigh, plain)

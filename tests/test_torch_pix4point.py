@@ -294,7 +294,7 @@ def test_what_is_not_ported_raises():
         Pix4Point(**CFG, moe_experts=4)
     with pytest.raises(NotImplementedError, match="A9"):  # the renderer serves; it does not train
         SerialAdapterBlock(128, 2)(torch.zeros(1, 17, 128), train=True)
-    with pytest.raises(NotImplementedError, match="B10"):
-        build_model({**APF_CFG, "quantized": True})
+    with pytest.raises(NotImplementedError, match="A12"):  # quantized=True serves (B10 ported)
+        build_model({**APF_CFG, "remat_encoder": True})
     with pytest.raises(ValueError, match="preset"):
         build_model({**P4P_CFG, "pretrained_model": "vit_huge"})

@@ -108,6 +108,27 @@ def test_logits_match_the_jax_model(case, implementation):
     _assert_rel(got, want, LOGIT_REL_TOL)
 
 
+def test_bf16_model_tracks_f32(case):
+    """The port's bf16 logits lie no further from JAX's f32 ones than JAX's
+    own bf16 model's do, within a factor 1.5 (bf16 rounds at other points
+    in the two frameworks)."""
+    cfg, points, jmodel, variables, model = case
+    with jax.default_matmul_precision("highest"):
+        want = np.asarray(jax.jit(lambda v, p: jmodel.apply(v, p))(variables, jnp.asarray(points)))
+    jbf = jrenderer.PointCloudRendererClassifier(**cfg, dtype=jnp.bfloat16)
+    jax_bf16 = np.asarray(jax.jit(lambda v, p: jbf.apply(v, p))(variables, jnp.asarray(points)),
+                          np.float32)
+    bf = PointCloudRendererClassifier(**cfg, dtype=torch.bfloat16)
+    bf.load_state_dict(model.state_dict())
+    with torch.inference_mode():
+        got = bf.eval()(T(points))
+    assert got.dtype == torch.bfloat16
+    scale = np.abs(want).max()
+    err = np.abs(got.float().numpy() - want).max() / scale
+    jax_err = np.abs(jax_bf16 - want).max() / scale
+    assert err <= 1.5 * jax_err, (err, jax_err)
+
+
 def test_views_and_angles_match_the_jax_model(case):
     cfg, points, jmodel, variables, model = case
     with jax.default_matmul_precision("highest"):
