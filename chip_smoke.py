@@ -63,12 +63,26 @@
    product shapes of quantized serving, on the inputs the served model gave
    those layers, and timed beside ``torch._int_mm`` on the already
    quantized operands (the int8 product alone) and the bf16 GEMM kernel.
+8. The fused attention sublayer: ``fused_attention_block`` forward and
+   backward at the attention sublayers of the three served models (APF
+   (256, 196, 768) x 12 heads, Pix4Point (256, 513, 384) x 6, renderer
+   (1536, 197, 768) x 12), on block 0's first LayerNorm output and attention
+   weights, with a seeded bf16 cotangent: the attn_block, GEMM and attention
+   backward kernels must launch; the forward must agree with
+   ``reference_attn_block``, and each of the five gradients must lie within
+   the training gate of the plain path's and of an f32 run's. Timed beside
+   ``torch.nn.MultiheadAttention`` on the same weights (never used).
+9. Attention at S = 1024: APF slim2 with npoint 1024 serves one request of
+   32 clouds of 2048 points on both paths (the serving gate; the attention
+   kernel's key-tiled variant launches), then the attention forward and
+   backward kernels are held against their plain versions on its block 0's
+   qkv (32, 1024, 2304), the backward bit-equal across two runs.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero; without a CUDA device it exits 1 before doing anything. It imports
 nothing of JAX and nothing of the JAX package ``pointvit_tpu``. The paths run
-at full depth; the whole run takes a few minutes of command time at most.
+at full depth; the whole run takes under three minutes of command time.
 """
 
 from __future__ import annotations
@@ -141,6 +155,10 @@ RENDERER_CONFIG = {
 }
 RENDERER_POINTS = 2048
 
+# APF slim2 at the JAX package's longest fused sequence: npoint 1024 over
+# 2048-point clouds, one bucket-32 request (the key-tiled attention kernel).
+LONG_NPOINT, LONG_BATCH = 1024, 32
+
 # The H100 SXM's published peaks (dense): the bound of a kernel is the larger
 # of its FLOPs over the rate for their type and its bytes over HBM's rate.
 PEAK_BF16, PEAK_F32, PEAK_INT8, HBM_BPS = 989e12, 67e12, 1979e12, 3.35e12
@@ -157,6 +175,8 @@ KERNELS = {
     "vit_block": ("pointvit_tpu_torch/csrc/block.cu", "pointvit_tpu/ops/pallas_block.py:338"),
     "serial_block": ("pointvit_tpu_torch/csrc/gemm.cu", "pointvit_tpu/ops/pallas_block.py:508"),
     "quant_dense": ("pointvit_tpu_torch/csrc/quant.cu", "pointvit_tpu/ops/pallas_quant.py:60"),
+    "attn_block": ("pointvit_tpu_torch/csrc/attn_block.cu",
+                   "pointvit_tpu/ops/pallas_attention.py:508"),
 }
 # The counters each path must raise: the ports and the kernels they chain.
 SERVING_COUNTERS = ("fps", "knn", "group_encoder", "apf_block", "gemm", "layernorm", "attention")
@@ -175,7 +195,10 @@ QUANT_COUNTERS = ("quant_dense", "fps", "knn", "mha_qkv")
 # tie exactly).
 # So argmax agreement is counted over the clouds that are not such ties:
 # top-2 gap above BF16_REL_TOL x max|logit| (2^-6 relative, a few bf16
-# steps; the two paths' logits differ by up to three).
+# steps; the two paths' logits differ by up to three). APF with npoint 1024
+# (one request of 32 clouds) is held the same way: on that card 2 of its 32
+# clouds changed argmax with max|dlogit| at two bf16 steps, the size of
+# difference the main APF phase shows.
 QUANT_UNUSED = ("apf_block", "group_encoder")
 # The int8 layers held in the quant-dense kernel phase (the encoder's and
 # block 0's), in the order of the forward; fc1 goes on the kernels line.
@@ -246,6 +269,16 @@ def rel_err(torch, got, want) -> tuple[float, float]:
 
 def rel_l2(got, want) -> float:
     return ((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30)).item()
+
+
+def untied(got: np.ndarray, want: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per cloud: whether the two paths' argmax agree, the plain path's
+    top-2 gap, and whether that gap exceeds BF16_REL_TOL x max|logit| (a
+    cloud the paths' rounding-order differences cannot flip)."""
+    same = got.argmax(-1) == want.argmax(-1)
+    top2 = np.sort(want, -1)[:, -2:]
+    gap = top2[:, 1] - top2[:, 0]
+    return same, gap, gap > BF16_REL_TOL * float(np.abs(want).max())
 
 
 def shape_clouds(rng, n: int, classes: int) -> tuple[np.ndarray, np.ndarray]:
@@ -638,12 +671,9 @@ def quant_phase(torch, dev, _build, base, requests, base_logits, base_ms) -> dic
     got_all, want_all = np.concatenate(served), np.concatenate(want)
     if got_all.shape != (sum(REQUESTS), cfg["num_classes"]) or not np.isfinite(got_all).all():
         fail(f"quantized logits: shape {got_all.shape}, finite {np.isfinite(got_all).all()}")
-    same = got_all.argmax(-1) == want_all.argmax(-1)
+    same, gap, decided = untied(got_all, want_all)
     dlogit = float(np.abs(got_all - want_all).max())
     scale = float(np.abs(want_all).max())
-    top2 = np.sort(want_all, -1)[:, -2:]
-    gap = top2[:, 1] - top2[:, 0]
-    decided = gap > BF16_REL_TOL * scale
     agree = float(same[decided].mean())
     print(f"quantized serving: requests {list(REQUESTS)}: argmax agreement {same.mean():.4f} over "
           f"all {same.size} clouds (top-2 plain-path gaps of the {int((~same).sum())} that differ: "
@@ -693,6 +723,151 @@ def quant_phase(torch, dev, _build, base, requests, base_logits, base_ms) -> dic
         for h in hooks:
             h.remove()
     return {"counts": counts, "model": model, "inputs": inputs}
+
+
+def attn_block_phase(torch, dev, _build, cases) -> tuple[dict, dict]:
+    """``fused_attention_block`` forward and backward at each case's shape,
+    on block 0's LayerNorm output and attention weights: the kernel path
+    (counted) against the plain path and an f32 run of the same step.
+    Returns the launch counts and the timings per case."""
+    from pointvit_tpu_torch.ops.attention_kernel import (
+        attn_block, fused_attention_block, reference_attn_block,
+    )
+
+    prepared = []
+    for i, (label, x, w, heads) in enumerate(cases):
+        x = x.clone()  # a normal tensor: autograd saves it
+        w = [t.detach().float().clone() for t in w]
+        g = torch.randn(x.shape, generator=torch.Generator().manual_seed(SEED + 10 + i))
+        prepared.append((label, x, w, heads, g.to(dev, torch.bfloat16)))
+
+    def step(x, w, heads, g, impl, dtype):
+        args = [x.to(dtype, copy=True).requires_grad_()] + [t.clone().requires_grad_() for t in w]
+        out = fused_attention_block(*args, heads, implementation=impl)
+        out.backward(g.to(dtype))
+        return out.detach(), [a.grad for a in args]
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    kernel_runs = [step(x, w, h, g, None, torch.bfloat16) for _, x, w, h, g in prepared]
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    print(f"attn_block launches during its forward and backward at {len(cases)} shapes: "
+          f"{json.dumps(counts)}", flush=True)
+    for name in ("attn_block", "mha_qkv_bwd", "gemm"):
+        if counts.get(name, 0) <= 0:
+            fail(f"fused_attention_block never launched the {name} kernel")
+
+    names = ("dx", "dwqkv", "dbqkv", "dwproj", "dbproj")
+    timings = {}
+    for (label, x, w, heads, g), (out, gk) in zip(prepared, kernel_runs):
+        B, S, E = x.shape
+        with torch.no_grad():
+            want = reference_attn_block(x, *w, heads)
+        d, r = rel_err(torch, out, want)
+        print(f"attn_block {label} {tuple(x.shape)} heads {heads}: forward max|d| {d:.6g}, relative "
+              f"to max|ref| {r:.3g} (bound {BF16_REL_TOL:.3g})", flush=True)
+        if not r <= BF16_REL_TOL:
+            fail(f"attn_block {label}: the forward disagrees with reference_attn_block")
+        _, gp = step(x, w, heads, g, "torch", torch.bfloat16)
+        _, gf = step(x, w, heads, g, "torch", torch.float32)
+        worst = []
+        for n, a, p, f in zip(names, gk, gp, gf):
+            kp, kf, pf = rel_l2(a, p), rel_l2(a, f), rel_l2(p, f)
+            worst.append(f"{n} {kp:.3g} / {kf:.3g} vs {pf:.3g}")
+            if not (kp <= TRAIN_GRAD_REL_TOL and kf <= TRAIN_GRAD_F32_RATIO * pf):
+                fail(f"attn_block {label}: the {n} gradient disagrees with the plain path's or f32's")
+        print(f"attn_block {label} backward, relative L2 kernel vs plain / kernel vs f32 vs plain "
+              f"vs f32 (bounds {TRAIN_GRAD_REL_TOL}; {TRAIN_GRAD_F32_RATIO}x): {'; '.join(worst)}",
+              flush=True)
+        del gp, gf
+
+        w16 = [t.to(torch.bfloat16) for t in w]
+        mha = torch.nn.MultiheadAttention(E, heads, batch_first=True, device=dev, dtype=torch.bfloat16)
+        with torch.no_grad():
+            mha.in_proj_weight.copy_(w16[0].t())
+            mha.in_proj_bias.copy_(w16[1])
+            mha.out_proj.weight.copy_(w16[2].t())
+            mha.out_proj.bias.copy_(w16[3])
+        mha.eval()
+        with torch.inference_mode():
+            lib_d = rel_err(torch, mha(x, x, x, need_weights=False)[0], want)[1]
+            res = dict(
+                shape=f"{tuple(x.shape)}, {heads} heads", max_abs_err=d,
+                ms=cuda_ms(torch, lambda: attn_block(x, *w16, heads), 5),
+                plain_ms=cuda_ms(torch, lambda: reference_attn_block(x, *w16, heads), 2),
+                **bound(8.0 * B * S * E * E + 4.0 * B * S * S * E,
+                        2 * nbytes(x) + sum(2 * t.numel() for t in w16)),
+                library_ms=cuda_ms(torch, lambda: mha(x, x, x, need_weights=False), 5))
+        res["train_ms"] = cuda_ms(torch, lambda: step(x, w, heads, g, None, torch.bfloat16), 2)
+        res["train_plain_ms"] = cuda_ms(torch, lambda: step(x, w, heads, g, "torch", torch.bfloat16), 1)
+        print(f"attn_block {label}: torch.nn.MultiheadAttention (timed only) against "
+              f"reference_attn_block: max|d| / max|ref| {lib_d:.3g}", flush=True)
+        timings[label] = res
+        del mha
+    del kernel_runs, prepared
+    torch.cuda.empty_cache()
+    return counts, timings
+
+
+def apf_long_phase(torch, dev, _build, base) -> dict:
+    """APF slim2 with npoint 1024 (S = 1024 tokens, the JAX package's fused
+    gate at its longest) on ``base``'s weights, serving one bucket-32
+    request of 2048-point clouds on the kernel path and the plain path.
+    Returns the launch counts, block 0 and block 0's input tokens."""
+    from pointvit_tpu_torch.models import AdaptPointFormer, apf_preset_config
+    from pointvit_tpu_torch.serve import InferenceSession
+
+    cfg = apf_preset_config("slim2", npoint=LONG_NPOINT)
+    model = AdaptPointFormer(**cfg)
+    plain = AdaptPointFormer(**cfg, implementation="torch")
+    model.load_state_dict(base.state_dict())
+    plain.load_state_dict(base.state_dict())
+    sess = InferenceSession(model, buckets=(LONG_BATCH,), device=dev)
+    psess = InferenceSession(plain, buckets=(LONG_BATCH,), device=dev)
+    rng = np.random.default_rng(SEED + 5)
+    req = rng.standard_normal((LONG_BATCH, P4P_POINTS, 3)).astype(np.float32)
+    sess.warmup(req[0])
+    torch.cuda.synchronize()
+
+    _build.reset_launch_counts()
+    tokens = []
+    hook = model.blocks[0].register_forward_pre_hook(lambda _, a: tokens.append(a[0]))
+    try:
+        got = sess.predict_logits(req)
+    finally:
+        hook.remove()
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    print(f"apf npoint {LONG_NPOINT} launches during serving: {json.dumps(counts)}", flush=True)
+    want = psess.predict_logits(req)
+    if got.shape != (LONG_BATCH, cfg["num_classes"]) or not np.isfinite(got).all():
+        fail(f"apf npoint {LONG_NPOINT} logits: shape {got.shape}, finite {np.isfinite(got).all()}")
+    same, gap, decided = untied(got, want)
+    agree = float(same[decided].mean())
+    dlogit = float(np.abs(got - want).max())
+    scale = float(np.abs(want).max())
+    print(f"apf npoint {LONG_NPOINT} serving: one request of {LONG_BATCH} clouds of {P4P_POINTS} "
+          f"points: argmax agreement {same.mean():.4f} over all (top-2 plain-path gaps of the "
+          f"{int((~same).sum())} that differ: {[float(v) for v in gap[~same]]}), {agree:.4f} over the "
+          f"{int(decided.sum())} whose gap exceeds {BF16_REL_TOL * scale:.4g} (need >= "
+          f"{ARGMAX_AGREEMENT}); max|dlogit| {dlogit:.6g} vs max|logit| {scale:.6g} (bound "
+          f"{LOGIT_REL_TOL} x max|logit|)", flush=True)
+    if agree < ARGMAX_AGREEMENT or dlogit > LOGIT_REL_TOL * scale:
+        fail(f"apf npoint {LONG_NPOINT} kernel-path logits disagree with the plain path")
+    for name in ("fps", "knn", "group_encoder", "apf_block", "attention"):
+        if counts.get(name, 0) <= 0:
+            fail(f"the apf npoint {LONG_NPOINT} serving path never launched the {name} kernel")
+    tp1 = cuda_ms(torch, lambda: psess.predict_logits(req), 1)
+    tk1 = cuda_ms(torch, lambda: sess.predict_logits(req), 3)
+    tk2 = cuda_ms(torch, lambda: sess.predict_logits(req), 3)
+    tp2 = cuda_ms(torch, lambda: psess.predict_logits(req), 1)
+    print(f"apf npoint {LONG_NPOINT} request of {LONG_BATCH}: kernel path {(tk1 + tk2) / 2:.3f} ms "
+          f"(runs {tk1:.3f}, {tk2:.3f}), plain path {(tp1 + tp2) / 2:.3f} ms (runs {tp1:.3f}, "
+          f"{tp2:.3f})", flush=True)
+    del psess, plain
+    torch.cuda.empty_cache()
+    return {"counts": counts, "block": model.blocks[0], "tokens": tokens[0]}
 
 
 def main() -> None:
@@ -890,7 +1065,8 @@ def main() -> None:
 
         # The training path's attention: qkv as block 0 makes it from real
         # tokens, a seeded bf16 cotangent for the backward.
-        qkv = linear(layer_norm(tokens, blk.norm1), blk.attention.qkv).contiguous()
+        ln_apf = layer_norm(tokens, blk.norm1)  # also fused_attention_block's input below
+        qkv = linear(ln_apf, blk.attention.qkv).contiguous()
         ak = attention_kernel.mha_qkv(qkv, heads)
         d = held("mha_qkv", ak, attention_kernel.reference_mha_qkv(qkv, heads),
                  f"{tuple(qkv.shape)} heads {heads}")
@@ -963,7 +1139,8 @@ def main() -> None:
                     nbytes(x0, pos0, vk, *w_vit)), library_ms=None)
 
         # The S=513 attention inside that block, alone.
-        qkv5 = linear(layer_norm(x0 + pos0, vblk.norm1), vblk.attn.qkv).contiguous()
+        ln_p4p = layer_norm(x0 + pos0, vblk.norm1)
+        qkv5 = linear(ln_p4p, vblk.attn.qkv).contiguous()
         a5 = block_kernel.attention(qkv5, vh)
         d = held("attention S=513", a5, block_kernel.reference_attention(qkv5, vh),
                  f"{tuple(qkv5.shape)} heads {vh}")
@@ -992,7 +1169,8 @@ def main() -> None:
         del sk
 
         # The S=197 attention inside that block, alone.
-        qkv197 = linear(layer_norm(x0, rblk.ln_1), rblk.self_attention.qkv).contiguous()
+        ln_rend = layer_norm(x0, rblk.ln_1)
+        qkv197 = linear(ln_rend, rblk.self_attention.qkv).contiguous()
         a197 = block_kernel.attention(qkv197, rh)
         d = held("attention S=197", a197, block_kernel.reference_attention(qkv197, rh),
                  f"{tuple(qkv197.shape)} heads {rh}")
@@ -1058,6 +1236,65 @@ def main() -> None:
     go = g.clone().reshape(B, G, heads, -1).transpose(1, 2).contiguous()
     results["mha_qkv_bwd"]["library_ms"] = cuda_ms(
         torch, lambda: torch.autograd.grad(out, (q, k, v), go, retain_graph=True), 10)
+    del q, k, v, out, go
+    torch.cuda.synchronize()
+
+    # -- the sixth path: fused_attention_block forward and backward at the
+    #    attention sublayers of the three served models ---------------------
+    t_ab = time.perf_counter()
+    ab_counts, ab = attn_block_phase(torch, dev, _build, [
+        ("APF", ln_apf, attention_kernel.attention_block_weights(blk.attention), heads),
+        ("Pix4Point", ln_p4p, attention_kernel.attention_block_weights(vblk.attn), vh),
+        ("renderer", ln_rend, attention_kernel.attention_block_weights(rblk.self_attention), rh)])
+    results["attn_block"] = {k: v for k, v in ab["APF"].items() if not k.startswith("train")}
+    print(f"attn_block phase: {time.perf_counter() - t_ab:.1f} s", flush=True)
+
+    # -- attention at S = 1024: APF slim2 with npoint 1024, then the forward
+    #    and backward kernels alone on its block 0 --------------------------
+    t_long = time.perf_counter()
+    long = apf_long_phase(torch, dev, _build, model)
+    with torch.inference_mode():
+        lblk = long["block"]
+        qkv_l = linear(layer_norm(long["tokens"], lblk.norm1), lblk.attention.qkv).contiguous()
+        Bl, Sl = qkv_l.shape[:2]
+        a_l = attention_kernel.mha_qkv(qkv_l, heads)
+        d = held("mha_qkv S=1024", a_l, attention_kernel.reference_mha_qkv(qkv_l, heads),
+                 f"{tuple(qkv_l.shape)} heads {heads}")
+        att_long = dict(
+            max_abs_err=d, ms=cuda_ms(torch, lambda: attention_kernel.mha_qkv(qkv_l, heads), 5),
+            plain_ms=cuda_ms(torch, lambda: attention_kernel.reference_mha_qkv(qkv_l, heads), 2),
+            **bound(4.0 * Bl * Sl * Sl * E, nbytes(qkv_l, a_l)))
+        g_l = torch.randn(a_l.shape, generator=torch.Generator().manual_seed(SEED + 6))
+        g_l = g_l.to(dev, torch.bfloat16)
+        dk1 = attention_kernel.mha_qkv_bwd(qkv_l, g_l, heads)
+        dk2 = attention_kernel.mha_qkv_bwd(qkv_l, g_l, heads)
+        dp = attention_kernel.reference_mha_qkv_bwd(qkv_l, g_l, heads)
+        torch.cuda.synchronize()
+        if not torch.equal(dk1, dk2):
+            fail("mha_qkv_bwd S=1024: two runs on the same inputs are not bit-equal")
+        d, r = rel_err(torch, dk1, dp)
+        parts = [rel_err(torch, dk1[..., i * E:(i + 1) * E], dp[..., i * E:(i + 1) * E])[1]
+                 for i in range(3)]
+        print(f"mha_qkv_bwd S=1024 {tuple(qkv_l.shape)}: max|d| {d:.6g}, relative to max|ref| "
+              f"{r:.3g}; dq, dk, dv each against its own max|ref| "
+              f"{', '.join(f'{p:.3g}' for p in parts)} (bound {BF16_REL_TOL:.3g}); two runs bit-equal",
+              flush=True)
+        if not max([r] + parts) <= BF16_REL_TOL:
+            fail("mha_qkv_bwd S=1024 disagrees with its plain version")
+        del dk2, dp
+        att_long_bwd = dict(
+            max_abs_err=d, ms=cuda_ms(torch, lambda: attention_kernel.mha_qkv_bwd(qkv_l, g_l, heads), 5),
+            plain_ms=cuda_ms(torch, lambda: attention_kernel.reference_mha_qkv_bwd(qkv_l, g_l, heads), 2),
+            **bound(10.0 * Bl * Sl * Sl * E, nbytes(qkv_l, g_l, dk1)))
+    q, k, v = (t.clone().requires_grad_() for t in heads_of(qkv_l, heads))
+    with torch.no_grad():
+        att_long["library_ms"] = cuda_ms(torch, lambda: sdpa(q, k, v), 5)
+    out = sdpa(q, k, v)
+    go = g_l.clone().reshape(Bl, Sl, heads, -1).transpose(1, 2).contiguous()
+    att_long_bwd["library_ms"] = cuda_ms(
+        torch, lambda: torch.autograd.grad(out, (q, k, v), go, retain_graph=True), 5)
+    del q, k, v, out, go
+    print(f"S=1024 phase: {time.perf_counter() - t_long:.1f} s", flush=True)
     torch.cuda.synchronize()
 
     def fmt(r):
@@ -1071,11 +1308,18 @@ def main() -> None:
         print(f"time {name} at {res['shape']}: {fmt(res)}", flush=True)
     print(f"time attention S=513 {tuple(qkv5.shape)} heads {vh}: {fmt(att513)}", flush=True)
     print(f"time attention S=197 {tuple(qkv197.shape)} heads {rh}: {fmt(att197)}", flush=True)
+    print(f"time attention S=1024 {tuple(qkv_l.shape)} heads {heads}: {fmt(att_long)}", flush=True)
+    print(f"time attention backward S=1024 {tuple(qkv_l.shape)} heads {heads}: {fmt(att_long_bwd)}",
+          flush=True)
+    for label, res in ab.items():
+        print(f"time attn_block {label} {res['shape']}: {fmt(res)}; forward + backward: kernel path "
+              f"{res['train_ms']:.4f} ms, plain path {res['train_plain_ms']:.4f} ms", flush=True)
     for name, res in quant_shapes.items():
         print(f"time quant_dense {name} {res['shape']}: {fmt(res)} (the int8 product alone, "
               f"torch._int_mm); the bf16 GEMM kernel at this shape {res['gemm_ms']:.4f} ms",
               flush=True)
-    paths = (counts, train_counts, p4p["counts"], rend["counts"], quant["counts"])
+    paths = (counts, train_counts, p4p["counts"], rend["counts"], quant["counts"], ab_counts,
+             long["counts"])
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(c.get(name, 0) for c in paths), **results[name]}

@@ -35,7 +35,11 @@
 // to bf16. The exact two-pass order (max, then exp and sum, then divide) is
 // the Pallas kernel's; no online rescaling. Staging V later changes no
 // arithmetic: the output is bit-identical to the kernel that held K and V
-// together.
+// together. Past S = 576 neither the head's K nor the softmax registers fit,
+// and attention_long_kernel takes S up to 1024 (the JAX package's fused
+// gate): K and V stream through shared memory in 64-key tiles and the
+// logits are recomputed for each of the three passes (max, sum, P.V), with
+// the same rounding points.
 #include "common.cuh"
 
 #include <math_constants.h>
@@ -258,6 +262,177 @@ __global__ __launch_bounds__(kAttnThreads) void attention_kernel(const bf16* __r
   }
 }
 
+// ------------------------------------------------------ long attention (S > 576)
+
+constexpr int kShortMaxSeq = 32 * kMaxPerLane;  // attention_kernel's reach
+constexpr int kLongMaxSeq = 1024;  // the JAX package's fused gate (pallas_block.py:85)
+constexpr int kKeyTile = 64;       // keys per streamed K or V tile
+
+template <int D>
+struct LongSmem {  // the Q tile, then two stages of a K tile and a V tile
+  static constexpr int KS = D + 8;
+  static constexpr size_t kBytes = (size_t)(kQTile + 2 * 2 * kKeyTile) * KS * 2;
+};
+
+// The long-sequence variant: K and V stream through shared memory in tiles of
+// 64 keys, so shared memory no longer bounds S. The Pallas kernel's exact
+// order stays: pass 1 takes the row max over all f32 logits, pass 2 the sum
+// of exp(l - max), pass 3 forms P = exp(l - max) / sum, rounds it to bf16 and
+// runs P.V. Each pass recomputes the logits from the same bf16 products in
+// the same order, so all three see the same f32 values; no online rescaling.
+// One block of 4 warps per (batch, head, 64-query tile); each warp keeps its
+// 16 query rows as operand fragments and its logits in registers.
+template <int D>
+__global__ __launch_bounds__(kAttnThreads) void attention_long_kernel(
+    const bf16* __restrict__ qkv, bf16* __restrict__ out, int S, int H, float scale) {
+  constexpr int KS = LongSmem<D>::KS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);       // [kQTile][KS]
+  bf16* Kt = Qs + (size_t)kQTile * KS;             // [2][kKeyTile][KS]
+  bf16* Vt = Kt + (size_t)2 * kKeyTile * KS;       // [2][kKeyTile][KS]
+
+  const int q0 = blockIdx.x * kQTile, h = blockIdx.y, b = blockIdx.z;
+  const int E = H * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bf16* base = qkv + (size_t)b * S * 3 * E + h * D;
+  stage_rows_async<D, kAttnThreads>(Qs, base, q0, kQTile, S, 3 * E);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int arow = (lane & 7) + ((lane >> 3) & 1) * 8, acol = (lane >> 4) * 8;
+  const int brow = (lane & 7) + (lane >> 4) * 8, bcol = ((lane >> 3) & 1) * 8;
+  const int r0 = warp * 16;
+  uint32_t qf[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) ldmatrix_x4(qf[kk], &Qs[(r0 + arow) * KS + kk * 16 + acol]);
+
+  const int tiles = (S + kKeyTile - 1) / kKeyTile;
+  // Scaled logits of this warp's 16 rows against keys [k0 + np*16, +16) of
+  // the staged tile, in the accumulator layout of two n8 tiles.
+  auto logits = [&](const bf16* K, int np, float (&s0)[4], float (&s1)[4]) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s0[e] = s1[e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t r[4];
+      ldmatrix_x4(r, &K[(np * 16 + brow) * KS + kk * 16 + bcol]);
+      mma_bf16(s0, qf[kk], r[0], r[1]);
+      mma_bf16(s1, qf[kk], r[2], r[3]);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s0[e] = __fmul_rn(s0[e], scale);
+      s1[e] = __fmul_rn(s1[e], scale);
+    }
+  };
+  auto stage = [&](bf16* dst, int col, int st, int t) {
+    stage_rows_async<D, kAttnThreads>(dst + (size_t)st * kKeyTile * KS, base + col, t * kKeyTile,
+                                      kKeyTile, S, 3 * E);
+  };
+  auto load_k = [&](int st, int t) {
+    stage(Kt, E, st, t);
+    cp_async_commit();
+  };
+  auto load_kv = [&](int st, int t) {
+    stage(Kt, E, st, t);
+    stage(Vt, 2 * E, st, t);
+    cp_async_commit();
+  };
+  const int cq = (lane & 3) * 2;  // this lane's first column within an n8 tile
+
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};  // rows lane/4 and lane/4 + 8
+  pipeline(tiles, load_k, [&](int st, int t) {
+    const int k0 = t * kKeyTile;
+    const bf16* K = Kt + (size_t)st * kKeyTile * KS;
+#pragma unroll
+    for (int np = 0; np < kKeyTile / 16; ++np) {
+      float s0[4], s1[4];
+      logits(K, np, s0, s1);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c0 = k0 + np * 16 + cq + (e & 1), c1 = c0 + 8;
+        if (c0 < S) m[e >> 1] = fmaxf(m[e >> 1], s0[e]);
+        if (c1 < S) m[e >> 1] = fmaxf(m[e >> 1], s1[e]);
+      }
+    }
+  });
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 1));
+    m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 2));
+  }
+
+  float sum[2] = {0.f, 0.f};
+  pipeline(tiles, load_k, [&](int st, int t) {
+    const int k0 = t * kKeyTile;
+    const bf16* K = Kt + (size_t)st * kKeyTile * KS;
+#pragma unroll
+    for (int np = 0; np < kKeyTile / 16; ++np) {
+      float s0[4], s1[4];
+      logits(K, np, s0, s1);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c0 = k0 + np * 16 + cq + (e & 1), c1 = c0 + 8;
+        if (c0 < S) sum[e >> 1] += expf(s0[e] - m[e >> 1]);
+        if (c1 < S) sum[e >> 1] += expf(s1[e] - m[e >> 1]);
+      }
+    }
+  });
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+    sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+  }
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
+  const int vrow = (lane & 7) + ((lane >> 3) & 1) * 8, vcol = (lane >> 4) * 8;
+  pipeline(tiles, load_kv, [&](int st, int t) {
+    const int k0 = t * kKeyTile;
+    const bf16* K = Kt + (size_t)st * kKeyTile * KS;
+    const bf16* V = Vt + (size_t)st * kKeyTile * KS;
+#pragma unroll
+    for (int np = 0; np < kKeyTile / 16; ++np) {
+      float s0[4], s1[4];
+      logits(K, np, s0, s1);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c0 = k0 + np * 16 + cq + (e & 1), c1 = c0 + 8;
+        s0[e] = c0 < S ? expf(s0[e] - m[e >> 1]) / sum[e >> 1] : 0.f;
+        s1[e] = c1 < S ? expf(s1[e] - m[e >> 1]) / sum[e >> 1] : 0.f;
+      }
+      const uint32_t pa[4] = {pack_bf16(s0[0], s0[1]), pack_bf16(s0[2], s0[3]),
+                              pack_bf16(s1[0], s1[1]), pack_bf16(s1[2], s1[3])};
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, &V[(np * 16 + vrow) * KS + dp * 16 + vcol]);
+        mma_bf16(o[2 * dp], pa, r[0], r[1]);
+        mma_bf16(o[2 * dp + 1], pa, r[2], r[3]);
+      }
+    }
+  });
+
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) {
+    const int col = h * D + nt * 8 + cq;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int q = q0 + r0 + (lane >> 2) + half * 8;
+      if (q < S) {
+        __nv_bfloat162 pr;
+        pr.x = f2bf(o[nt][2 * half]);
+        pr.y = f2bf(o[nt][2 * half + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(&out[((size_t)b * S + q) * E + col]) = pr;
+      }
+    }
+  }
+}
+
 }  // namespace
 
 // x (rows, E) bf16, gamma/beta (E,) bf16 -> y (rows, E) bf16.
@@ -283,28 +458,34 @@ extern "C" int pv_pos_layernorm(const void* x, const void* pos, int pos_rows, co
   return static_cast<int>(cudaGetLastError());
 }
 
-// Largest sequence length the attention kernel takes (shared memory and the
-// softmax's registers bound it): 576 at head dim 64.
-extern "C" int pv_attention_max_seq(int head_dim) {
-  if (head_dim != 64) return 0;
-  int s = 32 * kMaxPerLane;
-  while (s > 0 && AttnSmem<64>::bytes((s + 15) / 16 * 16) > 227 * 1024) s -= 16;
-  return s;
-}
+// Largest sequence length the attention kernels take: 1024 at head dim 64,
+// the JAX package's fused gate. attention_kernel serves S <= 576 (its
+// shared memory and the softmax's registers bound it), attention_long_kernel
+// the rest.
+extern "C" int pv_attention_max_seq(int head_dim) { return head_dim == 64 ? kLongMaxSeq : 0; }
 
 // qkv (B, S, 3E) bf16, packed [q | k | v], heads contiguous within each ->
 // out (B, S, E) bf16.
 extern "C" int pv_attention(const void* qkv, void* out, int B, int S, int H, int head_dim,
                             float scale, void* stream) {
-  if (head_dim != 64 || S > pv_attention_max_seq(head_dim)) {
+  if (head_dim != 64 || S < 1 || S > pv_attention_max_seq(head_dim)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int spad = (S + 15) / 16 * 16;
-  const size_t smem = AttnSmem<64>::bytes(spad);
-  cudaFuncSetAttribute(attention_kernel<64>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  dim3 grid((S + kQTile - 1) / kQTile, H, B);
-  attention_kernel<64><<<grid, kAttnThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), S, H, spad, scale);
+  const dim3 grid((S + kQTile - 1) / kQTile, H, B);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (S <= kShortMaxSeq) {
+    const int spad = (S + 15) / 16 * 16;
+    const size_t smem = AttnSmem<64>::bytes(spad);
+    cudaFuncSetAttribute(attention_kernel<64>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+    attention_kernel<64><<<grid, kAttnThreads, smem, st>>>(
+        static_cast<const bf16*>(qkv), static_cast<bf16*>(out), S, H, spad, scale);
+  } else {
+    const size_t smem = LongSmem<64>::kBytes;
+    cudaFuncSetAttribute(attention_long_kernel<64>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+    attention_long_kernel<64><<<grid, kAttnThreads, smem, st>>>(
+        static_cast<const bf16*>(qkv), static_cast<bf16*>(out), S, H, scale);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -78,33 +78,52 @@ __device__ __forceinline__ void store_q(int8_t* p, const int8_t (&q)[8]) {
   *reinterpret_cast<uint2*>(p) = t;
 }
 
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return bf2f(v); }
+
+// Rows of K values in, rows of Kp = K rounded up to 16 bytes out, the tail
+// zero. Rows whose bytes are whole 16-byte chunks (K % V == 0) load 16 bytes
+// at a time; others one value at a time. amax is a max, so both orders give
+// the same scale.
 template <typename T>
 __global__ __launch_bounds__(kRowThreads) void quantize_rows_kernel(
-    const T* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ sx, int M, int K) {
+    const T* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ sx, int M, int K,
+    int Kp) {
   constexpr int V = 16 / sizeof(T);  // values per 16-byte load
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * (kRowThreads / 32) + (threadIdx.x >> 5);
   if (row >= M) return;
+  const bool vec = K % V == 0;
   const T* xr = x + (size_t)row * K;
   float amax = 0.f;
-  for (int c = lane * V; c < K; c += 32 * V) {
-    float v[V];
-    load16(xr + c, v);
+  if (vec) {
+    for (int c = lane * V; c < K; c += 32 * V) {
+      float v[V];
+      load16(xr + c, v);
 #pragma unroll
-    for (int i = 0; i < V; ++i) amax = fmaxf(amax, fabsf(v[i]));
+      for (int i = 0; i < V; ++i) amax = fmaxf(amax, fabsf(v[i]));
+    }
+  } else {
+    for (int c = lane; c < K; c += 32) amax = fmaxf(amax, fabsf(to_f32(xr[c])));
   }
 #pragma unroll
   for (int o = 16; o; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
   const float s = fmaxf(__fdiv_rn(amax, 127.f), kEps);
-  int8_t* qr = xq + (size_t)row * K;
-  for (int c = lane * V; c < K; c += 32 * V) {
-    float v[V];
-    int8_t q[V];
-    load16(xr + c, v);
+  int8_t* qr = xq + (size_t)row * Kp;
+  if (vec) {
+    for (int c = lane * V; c < K; c += 32 * V) {
+      float v[V];
+      int8_t q[V];
+      load16(xr + c, v);
 #pragma unroll
-    for (int i = 0; i < V; ++i) q[i] = static_cast<int8_t>(__float2int_rn(__fdiv_rn(v[i], s)));
-    store_q(qr + c, q);
+      for (int i = 0; i < V; ++i) q[i] = static_cast<int8_t>(__float2int_rn(__fdiv_rn(v[i], s)));
+      store_q(qr + c, q);
+    }
+  } else {
+    for (int c = lane; c < K; c += 32)
+      qr[c] = static_cast<int8_t>(__float2int_rn(__fdiv_rn(to_f32(xr[c]), s)));
   }
+  for (int c = K + lane; c < Kp; c += 32) qr[c] = 0;
   if (lane == 0) sx[row] = s;
 }
 
@@ -233,16 +252,18 @@ __global__ __launch_bounds__(kThreads) void quant_gemm_kernel(const QuantGemmArg
 
 }  // namespace
 
+// x (M, K) bf16 or f32 -> xq (M, Kp) int8 (columns K.. zero), sx (M,) f32;
+// Kp is K rounded up to a multiple of 16.
 extern "C" int pv_quantize_rows(const void* x, int x_f32, void* xq, void* sx, int M, int K,
-                                void* stream) {
+                                int Kp, void* stream) {
   const dim3 grid((M + kRowThreads / 32 - 1) / (kRowThreads / 32));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_f32) {
     quantize_rows_kernel<float><<<grid, kRowThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<int8_t*>(xq), static_cast<float*>(sx), M, K);
+        static_cast<const float*>(x), static_cast<int8_t*>(xq), static_cast<float*>(sx), M, K, Kp);
   } else {
     quantize_rows_kernel<bf16><<<grid, kRowThreads, 0, s>>>(
-        static_cast<const bf16*>(x), static_cast<int8_t*>(xq), static_cast<float*>(sx), M, K);
+        static_cast<const bf16*>(x), static_cast<int8_t*>(xq), static_cast<float*>(sx), M, K, Kp);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -111,10 +111,10 @@ class ViTBlock(nn.Module):
         x = x + pos;  x = x + attn(norm1(x));  out = x + mlp(norm2(x))
 
     At inference it runs :func:`~pointvit_tpu_torch.ops.vit_block_kernel.fused_vit_block`:
-    on the card the kernel chain, for the shapes its attention kernel takes
-    (head dim 64, S ≤ 576; every such shape passes the JAX package's fused
-    gate, ``pallas_block.py:97-110``), raising on the others rather than
-    running plain code; with ``implementation='torch'``, or on the CPU, its
+    on the card the kernel chain, for the shapes its attention kernels take
+    (head dim 64, S ≤ 1024: the JAX package's fused gate,
+    ``pallas_block.py:97-110``, at head dim 64), raising on the others
+    rather than running plain code; with ``implementation='torch'``, or on the CPU, its
     plain version. Training is not ported yet.
     """
 
@@ -161,8 +161,8 @@ class SerialAdapterBlock(nn.Module):
     (each adapter is residual itself: a(y) = y + up(gelu(down(y)))). At
     inference it runs
     :func:`~pointvit_tpu_torch.ops.serial_block_kernel.fused_serial_block`:
-    on the card the kernel chain (head dim 64, S up to the attention
-    kernel's limit; other shapes raise), with ``implementation='torch'`` or
+    on the card the kernel chain (head dim 64, S ≤ 1024, the attention
+    kernels' limit; other shapes raise), with ``implementation='torch'`` or
     on the CPU its plain version. Training is not ported yet.
     """
 

@@ -184,9 +184,10 @@ def split_heads(qkv: torch.Tensor, num_heads: int) -> tuple[int, int, int, int]:
 
 
 def attention_max_seq(head_dim: int) -> int:
-    """The longest sequence the attention kernel takes at ``head_dim`` (0:
+    """The longest sequence the attention kernels take at ``head_dim`` (0:
     that head dim is not taken); ``pv_attention_max_seq`` of the built
-    library, 576 at head dim 64."""
+    library: 1024 at head dim 64, the JAX package's fused gate (one kernel
+    up to 576, a key-tiled one above)."""
     return kernel("block", "pv_attention_max_seq", [INT])(head_dim)
 
 

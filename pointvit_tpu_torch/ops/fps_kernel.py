@@ -41,7 +41,8 @@ def reference_fps(xyz: torch.Tensor, num_samples: int, start: torch.Tensor) -> t
 
 
 def fps(xyz: torch.Tensor, num_samples: int, start: torch.Tensor) -> torch.Tensor:
-    """FPS indices (B, S) int32: the kernel for CUDA tensors, the plain
+    """FPS indices (B, S) int32: the kernel for CUDA tensors (any N; above
+    14,528 points its distance field is in device memory), the plain
     version for CPU tensors."""
     if xyz.dim() != 3 or xyz.shape[-1] != 3:
         raise ValueError(f"xyz must be (B, N, 3), got {tuple(xyz.shape)}")
@@ -54,11 +55,14 @@ def fps(xyz: torch.Tensor, num_samples: int, start: torch.Tensor) -> torch.Tenso
         return reference_fps(xyz, num_samples, start)
     require(xyz, "xyz", torch.float32, 3)
     require(start, "start", torch.int32, 1, xyz.device)
-    if 4 * N * 4 > 227 * 1024:  # coordinates and distance field in shared memory
-        raise ValueError(f"the FPS kernel holds N <= {227 * 1024 // 16} points, got {N}")
     out = torch.empty((B, num_samples), dtype=torch.int32, device=xyz.device)
-    fn = kernel("fps", "pv_fps", [PTR, PTR, PTR, INT, INT, INT, PTR])
-    err = fn(xyz.data_ptr(), start.data_ptr(), out.data_ptr(), B, N, num_samples,
+    # Above this N the distance field lives in a device-memory scratch.
+    dist = None
+    if N > kernel("fps", "pv_fps_smem_max_points", [])():
+        dist = torch.empty((B, N), dtype=torch.float32, device=xyz.device)
+    fn = kernel("fps", "pv_fps", [PTR, PTR, PTR, PTR, INT, INT, INT, PTR])
+    err = fn(xyz.data_ptr(), start.data_ptr(), out.data_ptr(),
+             dist.data_ptr() if dist is not None else None, B, N, num_samples,
              stream_ptr(xyz.device))
     check(err, "fps", "pv_fps")
     launches.add()

@@ -25,6 +25,7 @@ ulp; it is held at the JAX package's own tolerance instead.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from pointvit_tpu_torch._build import INT, PTR, LaunchCounter, check, kernel, require, stream_ptr
 
@@ -33,7 +34,7 @@ __all__ = ["quantize_weight", "quant_dense", "reference_quant_dense", "quantize_
 launches = LaunchCounter("quant_dense")
 
 _EPS = 1e-8
-_K_ALIGN = 16  # one 16-byte cp.async chunk of an int8 row (csrc/quant.cu)
+_K_ALIGN = 16  # the GEMM's K step unit: one 16-byte cp.async chunk of an int8 row
 _PLAIN_ROWS = 1 << 16  # rows per float64 product in the plain version
 
 
@@ -96,8 +97,10 @@ def quant_dense(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
     A CPU tensor takes the plain version. A CUDA tensor launches the two
     kernels of ``csrc/quant.cu`` (row quantizer, int8 GEMM with the dequant
     epilogue): x bf16 or f32, wq int8 (N, K), sw and bias f32 (N,), all
-    contiguous on one card, K % 16 == 0, out_dtype bf16 or f32; anything
-    else raises.
+    contiguous on one card, out_dtype bf16 or f32; anything else raises.
+    Any K: for K % 16 != 0 the quantized rows are written K rounded up to 16
+    with zero bytes and the GEMM reads the weight padded with zero columns,
+    which add nothing to the int32 sum.
     """
     K, N = _check_operands(x, wq, sw, bias)
     out_dtype = out_dtype or x.dtype
@@ -107,8 +110,6 @@ def quant_dense(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
         raise ValueError(f"x must be bf16 or f32, got {x.dtype}")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"out_dtype must be bf16 or f32, got {out_dtype}")
-    if K % _K_ALIGN:
-        raise ValueError(f"the quant_dense kernel needs K % {_K_ALIGN} == 0, got K={K}")
     lead = x.shape[:-1]
     x2 = x.reshape(-1, K)
     dev = x.device
@@ -121,16 +122,19 @@ def quant_dense(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     if M == 0:
         return out.reshape(*lead, N)
-    xq = torch.empty((M, K), dtype=torch.int8, device=dev)
+    Kp = -(-K // _K_ALIGN) * _K_ALIGN
+    if Kp != K:
+        wq = F.pad(wq, (0, Kp - K))
+    xq = torch.empty((M, Kp), dtype=torch.int8, device=dev)
     sx = torch.empty((M,), dtype=torch.float32, device=dev)
     stream = stream_ptr(dev)
-    rows = kernel("quant", "pv_quantize_rows", [PTR, INT, PTR, PTR, INT, INT, PTR])
+    rows = kernel("quant", "pv_quantize_rows", [PTR, INT, PTR, PTR, INT, INT, INT, PTR])
     check(rows(x2.data_ptr(), int(x.dtype == torch.float32), xq.data_ptr(), sx.data_ptr(), M, K,
-               stream), "quant", "pv_quantize_rows")
+               Kp, stream), "quant", "pv_quantize_rows")
     gemm = kernel("quant", "pv_quant_gemm",
                   [PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, PTR])
     check(gemm(xq.data_ptr(), wq.data_ptr(), sx.data_ptr(), sw.data_ptr(),
                bias.data_ptr() if bias is not None else None, out.data_ptr(),
-               int(out_dtype == torch.float32), M, N, K, stream), "quant", "pv_quant_gemm")
+               int(out_dtype == torch.float32), M, N, Kp, stream), "quant", "pv_quant_gemm")
     launches.add()
     return out.reshape(*lead, N)

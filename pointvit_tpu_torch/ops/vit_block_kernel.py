@@ -11,7 +11,7 @@ Counterpart of ``pointvit_tpu/ops/pallas_block.py::fused_vit_block``
 
 On the card the block is a chain of hand-written launches: the LayerNorm
 that adds ``pos`` and writes both xp and LN1(xp) (``csrc/block.cu``), the
-qkv GEMM, the packed-qkv attention kernel (head dim 64, S ≤ 576: Pix4Point's
+qkv GEMM, the packed-qkv attention kernels (head dim 64, S ≤ 1024: Pix4Point's
 S = 513 included), proj with the xp residual in its epilogue, LN2, fc1 with
 GELU, fc2 with the x1 residual (``csrc/gemm.cu``). The rounding follows
 ``_vit_block_pallas``: LN affines and biases are rounded to bf16
@@ -52,8 +52,8 @@ launches = LaunchCounter("vit_block")
 
 def vit_block_shapes_ok(S: int, E: int, num_heads: int) -> bool:
     """Whether the kernel chain takes the shape: head dim and S within the
-    attention kernel's limit (:func:`attention_max_seq`: head dim 64, S ≤
-    576), which lies inside the JAX package's gate ``fused_block_shapes_ok``
+    attention kernels' limit (:func:`attention_max_seq`: head dim 64, S ≤
+    1024), which lies inside the JAX package's gate ``fused_block_shapes_ok``
     (``pallas_block.py:97-110``). Asks the built library."""
     if E % num_heads:
         return False

@@ -120,7 +120,7 @@ def test_gemm_refuses_what_it_does_not_take(dev):
         gemm(torch.zeros(96, 8, device=dev, dtype=torch.bfloat16), w[:, :8].contiguous(), group=48)
 
 
-@pytest.mark.parametrize("S", [16, 65, 196, 416, 513, 576])
+@pytest.mark.parametrize("S", [16, 65, 196, 416, 513, 576, 577, 768, 1000, 1024])
 def test_attention_and_layernorm(dev, S):
     gen = torch.Generator().manual_seed(S)
     qkv = _rand(gen, 3, S, 3 * 768, dev=dev, scale=2.0)
@@ -133,12 +133,12 @@ def test_attention_and_layernorm(dev, S):
 def test_attention_refuses_other_head_dims_and_long_sequences(dev):
     with pytest.raises(ValueError, match="head_dim 64"):
         block_kernel.attention(torch.zeros(1, 16, 3 * 128, device=dev, dtype=torch.bfloat16), 4)
-    assert block_kernel.attention_max_seq(64) == 576
+    assert block_kernel.attention_max_seq(64) == 1024
     with pytest.raises(ValueError, match="head_dim 64"):
-        block_kernel.attention(torch.zeros(1, 577, 3 * 768, device=dev, dtype=torch.bfloat16), 12)
+        block_kernel.attention(torch.zeros(1, 1025, 3 * 768, device=dev, dtype=torch.bfloat16), 12)
 
 
-@pytest.mark.parametrize("S", [16, 65, 196, 416])
+@pytest.mark.parametrize("S", [16, 65, 196, 416, 417, 448, 513, 577, 768, 1000, 1024])
 def test_attention_backward_matches_its_plain_version_and_repeats_bit_for_bit(dev, S):
     gen = torch.Generator().manual_seed(100 + S)
     qkv = _rand(gen, 3, S, 3 * 768, dev=dev, scale=2.0)
@@ -155,8 +155,8 @@ def test_attention_backward_refuses_other_head_dims_and_long_sequences(dev):
         attention_kernel.mha_qkv_bwd(torch.zeros(1, 16, 3 * 128, device=dev, dtype=torch.bfloat16),
                                      torch.zeros(1, 16, 128, device=dev, dtype=torch.bfloat16), 4)
     with pytest.raises(ValueError, match="head_dim 64"):
-        attention_kernel.mha_qkv_bwd(torch.zeros(1, 513, 3 * 768, device=dev, dtype=torch.bfloat16),
-                                     torch.zeros(1, 513, 768, device=dev, dtype=torch.bfloat16), 12)
+        attention_kernel.mha_qkv_bwd(torch.zeros(1, 1025, 3 * 768, device=dev, dtype=torch.bfloat16),
+                                     torch.zeros(1, 1025, 768, device=dev, dtype=torch.bfloat16), 12)
 
 
 def test_attention_function_runs_both_kernels(dev):
@@ -320,10 +320,10 @@ def test_vit_block_refuses_what_the_kernels_do_not_take(dev):
     w = _vit_weights(gen, 384, dev)
     with pytest.raises(ValueError, match="head_dim 64"):  # head dim 32
         vit_block_kernel.fused_vit_block(_rand(gen, 1, 64, 384, dev=dev), w, 12)
-    with pytest.raises(ValueError, match="S ≤ 576"):
-        vit_block_kernel.fused_vit_block(_rand(gen, 1, 600, 384, dev=dev), w, 6)
-    with pytest.raises(ValueError, match="S ≤ 576"):  # within the JAX gate (S ≤ 1024), not the kernel's
-        vit_block_kernel.fused_vit_block(_rand(gen, 1, 1024, 384, dev=dev), w, 6)
+    with pytest.raises(ValueError, match="S ≤ 1024"):  # past the JAX gate too
+        vit_block_kernel.fused_vit_block(_rand(gen, 1, 1025, 384, dev=dev), w, 6)
+    x = _rand(gen, 1, 1024, 384, dev=dev)  # the JAX gate's longest: the key-tiled attention
+    _assert_rel(vit_block_kernel.fused_vit_block(x, w, 6), vit_block_kernel.reference_vit_block(x, w, 6))
     with pytest.raises(ValueError, match="bf16"):
         vit_block_kernel.fused_vit_block(_rand(gen, 1, 64, 384, dev=dev, dtype=torch.float32), w, 6)
 
@@ -380,8 +380,8 @@ def test_serial_block_refuses_what_the_kernels_do_not_take(dev):
     w = _serial_weights(gen, 768, 64, dev)
     with pytest.raises(ValueError, match="head_dim 64"):  # head dim 32
         serial_block_kernel.fused_serial_block(_rand(gen, 1, 64, 768, dev=dev), w, 24)
-    with pytest.raises(ValueError, match="S ≤ 576"):
-        serial_block_kernel.fused_serial_block(_rand(gen, 1, 600, 768, dev=dev), w, 12)
+    with pytest.raises(ValueError, match="S ≤ 1024"):
+        serial_block_kernel.fused_serial_block(_rand(gen, 1, 1025, 768, dev=dev), w, 12)
     with pytest.raises(ValueError, match="bf16"):
         serial_block_kernel.fused_serial_block(_rand(gen, 1, 64, 768, dev=dev, dtype=torch.float32),
                                                w, 12)
@@ -462,8 +462,6 @@ def test_quant_dense_refuses_what_it_does_not_take(dev):
         quant_kernel.quant_dense(x.half(), wq, sw, bias)
     with pytest.raises(ValueError, match="int8"):
         quant_kernel.quant_dense(x, wq.float(), sw, bias)
-    with pytest.raises(ValueError, match="K % 16"):
-        quant_kernel.quant_dense(x[:, :40].contiguous(), wq[:, :40].contiguous(), sw, bias)
     with pytest.raises(ValueError, match="wq"):
         quant_kernel.quant_dense(x, wq[:, :64].contiguous(), sw, bias)
 
@@ -502,3 +500,96 @@ def test_apf_group_above_2048_points_takes_the_exact_topk(dev):
     plain, _ = apf_group(pts, pts, 196, 16, implementation="torch")
     torch.cuda.synchronize()
     assert torch.equal(neigh, plain)
+
+
+@pytest.mark.parametrize("N", [16384, 20000])
+def test_fps_above_shared_memory_selects_like_the_plain_version(dev, N):
+    gen = torch.Generator().manual_seed(N)
+    xyz = torch.randn(3, N, 3, generator=gen).to(dev)
+    xyz[:, 900:910] = xyz[:, 800:801]  # exact duplicates: ties to the lowest index
+    start = torch.randint(0, N, (3,), generator=gen, dtype=torch.int32).to(dev)
+    _build.reset_launch_counts()
+    got = fps_kernel.fps(xyz, 512, start)
+    assert _build.launch_counts()["fps"] == 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, fps_kernel.reference_fps(xyz, 512, start))
+
+
+@pytest.mark.parametrize("K", [6, 40, 100])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quant_dense_at_any_k_is_bit_equal_to_its_plain_version(dev, K, dtype):
+    gen = torch.Generator().manual_seed(K)
+    x, wq, sw, bias = _quant_operands(gen, 300, K, 72, dtype, dev)
+    got = quant_kernel.quant_dense(x, wq, sw, bias)
+    want = quant_kernel.reference_quant_dense(x, wq, sw, bias)
+    torch.cuda.synchronize()
+    view = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(view), want.view(view))
+
+
+def _attn_weights(gen, E, dev, dtype=torch.float32):
+    return (_rand(gen, E, 3 * E, dev=dev, dtype=dtype, scale=E**-0.5),
+            _rand(gen, 3 * E, dev=dev, dtype=dtype, scale=0.2),
+            _rand(gen, E, E, dev=dev, dtype=dtype, scale=E**-0.5),
+            _rand(gen, E, dev=dev, dtype=dtype, scale=0.2))
+
+
+@pytest.mark.parametrize("B,S,E", [(4, 196, 768), (6, 197, 768), (2, 513, 384), (2, 736, 768), (3, 37, 128)])
+def test_attn_block_matches_its_plain_version_forward_and_backward(dev, B, S, E):
+    gen = torch.Generator().manual_seed(S + E)
+    H = E // 64
+    x = _rand(gen, B, S, E, dev=dev, scale=2.0)
+    w = _attn_weights(gen, E, dev)
+    g = _rand(gen, B, S, E, dev=dev)
+    grads = []
+    for impl in (None, "torch"):
+        args = [t.clone().requires_grad_() for t in (x, *w)]
+        _build.reset_launch_counts()
+        out = attention_kernel.fused_attention_block(*args, H, implementation=impl)
+        out.backward(g)
+        counts = _build.launch_counts()
+        assert (counts["attn_block"], counts["gemm"], counts["mha_qkv_bwd"]) == (
+            (1, 1, 1) if impl is None else (0, 0, 0))
+        grads.append((out.detach(), *(a.grad for a in args)))
+    for got, want in zip(*grads):
+        assert got.dtype == want.dtype
+        _assert_rel(got, want)
+
+
+def test_attn_block_keeps_qkv_out_of_device_memory_and_refuses_what_it_does_not_take(dev):
+    gen = torch.Generator().manual_seed(9)
+    B, S, E = 64, 196, 768
+    x = _rand(gen, B, S, E, dev=dev)
+    w = _attn_weights(gen, E, dev, torch.bfloat16)
+    attention_kernel.attn_block(x, *w, 12)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, o = attention_kernel.attn_block(x, *w, 12)
+    torch.cuda.synchronize()
+    # o, out and the two launch-ready weight copies; a (B, S, 3E) qkv would add 3·B·S·E·2 bytes
+    assert torch.cuda.max_memory_allocated() - before < 3 * B * S * E * 2
+    assert attention_kernel.attn_block_max_seq(64) == 736
+    with pytest.raises(ValueError, match="S ≤ 736"):
+        attention_kernel.attn_block(_rand(gen, 1, 737, E, dev=dev), *w, 12)
+    with pytest.raises(ValueError, match="head_dim 64"):
+        attention_kernel.attn_block(x, *w, 24)
+    with pytest.raises(ValueError, match="bf16"):
+        attention_kernel.attn_block(x.float(), *w, 12)
+
+
+def test_fused_mha_runs_both_attention_kernels(dev):
+    gen = torch.Generator().manual_seed(10)
+    q, k, v = (_rand(gen, 3, 577, 6, 64, dev=dev, scale=2.0) for _ in range(3))
+    g = _rand(gen, 3, 577, 6, 64, dev=dev)
+    results = []
+    for impl in (None, "torch"):
+        args = [t.clone().requires_grad_() for t in (q, k, v)]
+        _build.reset_launch_counts()
+        out = attention_kernel.fused_mha(*args, implementation=impl)
+        out.backward(g)
+        counts = _build.launch_counts()
+        assert (counts["mha_qkv"], counts["mha_qkv_bwd"]) == ((1, 1) if impl is None else (0, 0))
+        results.append((out.detach(), *(a.grad for a in args)))
+    for got, want in zip(*results):
+        _assert_rel(got, want)

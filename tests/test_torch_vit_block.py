@@ -57,13 +57,13 @@ def test_weights_and_gate_match_jax(monkeypatch):
     got = vit_block_kernel.vit_block_weights(blk, torch.float32)
     for g, w in zip(got, want):  # the port keeps nn.Linear's (out, in) layout
         np.testing.assert_array_equal((g.t() if g.dim() == 2 else g).numpy(), np.asarray(w))
-    # The chain's gate is the attention kernel's limit (576 at head dim 64 on
-    # the card), which lies inside the JAX gate: the port fuses no shape JAX
-    # would not.
-    monkeypatch.setattr(vit_block_kernel, "attention_max_seq", lambda d: 576 if d == 64 else 0)
-    for shape, ok in [((513, 384, 6), True), ((197, 768, 12), True), ((576, 384, 6), True),
-                      ((577, 384, 6), False), ((10, 32, 3), False), ((10, 36, 9), False),
-                      ((1040, 768, 12), False), ((1024, 384, 6), False), ((33, 128, 4), False)]:
+    # The chain's gate is the attention kernels' limit (1024 at head dim 64
+    # on the card), which lies inside the JAX gate: the port fuses no shape
+    # JAX would not.
+    monkeypatch.setattr(vit_block_kernel, "attention_max_seq", lambda d: 1024 if d == 64 else 0)
+    for shape, ok in [((513, 384, 6), True), ((197, 768, 12), True), ((577, 384, 6), True),
+                      ((1024, 384, 6), True), ((1025, 384, 6), False), ((10, 32, 3), False),
+                      ((10, 36, 9), False), ((1040, 768, 12), False), ((33, 128, 4), False)]:
         assert vit_block_kernel.vit_block_shapes_ok(*shape) == ok, shape
         assert not ok or pallas_block.fused_block_shapes_ok(*shape), shape
 
