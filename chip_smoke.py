@@ -73,10 +73,16 @@
    the training gate of the plain path's and of an f32 run's. Timed beside
    ``torch.nn.MultiheadAttention`` on the same weights (never used).
 9. Attention at S = 1024: APF slim2 with npoint 1024 serves one request of
-   32 clouds of 2048 points on both paths (the serving gate; the attention
-   kernel's key-tiled variant launches), then the attention forward and
+   32 clouds of 2048 points on both paths (the serving gate; the fused
+   block chain at the longest S it takes), then the attention forward and
    backward kernels are held against their plain versions on its block 0's
    qkv (32, 1024, 2304), the backward bit-equal across two runs.
+10. Attention above the blocks' gate: APF slim2 with npoint 1536 serves one
+   request of 8 clouds of 4096 points on both paths (the serving gate; the
+   blocks leave their fused chain for the unfused forward, as the JAX
+   package does above S = 1024, so the attention kernel launches as
+   mha_qkv and the fused block never), then the attention kernel is held
+   against its plain version on its block 0's qkv (8, 1536, 2304).
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``. Any failure exits
@@ -156,8 +162,11 @@ RENDERER_CONFIG = {
 RENDERER_POINTS = 2048
 
 # APF slim2 at the JAX package's longest fused sequence: npoint 1024 over
-# 2048-point clouds, one bucket-32 request (the key-tiled attention kernel).
+# 2048-point clouds, one bucket-32 request (the fused block chain).
 LONG_NPOINT, LONG_BATCH = 1024, 32
+# APF slim2 above that gate: npoint 1536 over 4096-point clouds, one request
+# of 8 (the unfused block, whose attention kernel takes any S).
+LONGER_NPOINT, LONGER_BATCH, LONGER_POINTS = 1536, 8, 4096
 
 # The H100 SXM's published peaks (dense): the bound of a kernel is the larger
 # of its FLOPs over the rate for their type and its bytes over HBM's rate.
@@ -168,7 +177,7 @@ KERNELS = {
     "knn": ("pointvit_tpu_torch/csrc/knn.cu", "pointvit_tpu/ops/pallas_knn.py:109"),
     "group_encoder": ("pointvit_tpu_torch/csrc/gemm.cu", "pointvit_tpu/ops/pallas_encoder.py:93"),
     "apf_block": ("pointvit_tpu_torch/csrc/block.cu", "pointvit_tpu/ops/pallas_block.py:197"),
-    "mha_qkv": ("pointvit_tpu_torch/csrc/block.cu", "pointvit_tpu/ops/pallas_attention.py:205"),
+    "mha_qkv": ("pointvit_tpu_torch/csrc/attention.cu", "pointvit_tpu/ops/pallas_attention.py:205"),
     "mha_qkv_bwd": ("pointvit_tpu_torch/csrc/attention_bwd.cu",
                     "pointvit_tpu/ops/pallas_attention.py:399"),
     "p3_embed": ("pointvit_tpu_torch/csrc/gemm.cu", "pointvit_tpu/ops/pallas_encoder.py:235"),
@@ -790,15 +799,16 @@ def attn_block_phase(torch, dev, _build, cases) -> tuple[dict, dict]:
             mha.out_proj.weight.copy_(w16[2].t())
             mha.out_proj.bias.copy_(w16[3])
         mha.eval()
+        flops = 8.0 * B * S * E * E + 4.0 * B * S * S * E
         with torch.inference_mode():
             lib_d = rel_err(torch, mha(x, x, x, need_weights=False)[0], want)[1]
             res = dict(
                 shape=f"{tuple(x.shape)}, {heads} heads", max_abs_err=d,
                 ms=cuda_ms(torch, lambda: attn_block(x, *w16, heads), 5),
                 plain_ms=cuda_ms(torch, lambda: reference_attn_block(x, *w16, heads), 2),
-                **bound(8.0 * B * S * E * E + 4.0 * B * S * S * E,
-                        2 * nbytes(x) + sum(2 * t.numel() for t in w16)),
-                library_ms=cuda_ms(torch, lambda: mha(x, x, x, need_weights=False), 5))
+                **bound(flops, 2 * nbytes(x) + sum(2 * t.numel() for t in w16)),
+                library_ms=cuda_ms(torch, lambda: mha(x, x, x, need_weights=False), 5),
+                flops=flops)
         res["train_ms"] = cuda_ms(torch, lambda: step(x, w, heads, g, None, torch.bfloat16), 2)
         res["train_plain_ms"] = cuda_ms(torch, lambda: step(x, w, heads, g, "torch", torch.bfloat16), 1)
         print(f"attn_block {label}: torch.nn.MultiheadAttention (timed only) against "
@@ -810,23 +820,24 @@ def attn_block_phase(torch, dev, _build, cases) -> tuple[dict, dict]:
     return counts, timings
 
 
-def apf_long_phase(torch, dev, _build, base) -> dict:
-    """APF slim2 with npoint 1024 (S = 1024 tokens, the JAX package's fused
-    gate at its longest) on ``base``'s weights, serving one bucket-32
-    request of 2048-point clouds on the kernel path and the plain path.
-    Returns the launch counts, block 0 and block 0's input tokens."""
+def apf_long_phase(torch, dev, _build, base, npoint, batch, points, seed, need, unused) -> dict:
+    """APF slim2 with ``npoint`` tokens on ``base``'s weights, serving one
+    request of ``batch`` clouds of ``points`` points on the kernel path and
+    the plain path. The counters in ``need`` must launch and those in
+    ``unused`` must not. Returns the launch counts, block 0 and block 0's
+    input tokens."""
     from pointvit_tpu_torch.models import AdaptPointFormer, apf_preset_config
     from pointvit_tpu_torch.serve import InferenceSession
 
-    cfg = apf_preset_config("slim2", npoint=LONG_NPOINT)
+    cfg = apf_preset_config("slim2", npoint=npoint)
     model = AdaptPointFormer(**cfg)
     plain = AdaptPointFormer(**cfg, implementation="torch")
     model.load_state_dict(base.state_dict())
     plain.load_state_dict(base.state_dict())
-    sess = InferenceSession(model, buckets=(LONG_BATCH,), device=dev)
-    psess = InferenceSession(plain, buckets=(LONG_BATCH,), device=dev)
-    rng = np.random.default_rng(SEED + 5)
-    req = rng.standard_normal((LONG_BATCH, P4P_POINTS, 3)).astype(np.float32)
+    sess = InferenceSession(model, buckets=(batch,), device=dev)
+    psess = InferenceSession(plain, buckets=(batch,), device=dev)
+    rng = np.random.default_rng(seed)
+    req = rng.standard_normal((batch, points, 3)).astype(np.float32)
     sess.warmup(req[0])
     torch.cuda.synchronize()
 
@@ -839,30 +850,33 @@ def apf_long_phase(torch, dev, _build, base) -> dict:
         hook.remove()
     torch.cuda.synchronize()
     counts = _build.launch_counts()
-    print(f"apf npoint {LONG_NPOINT} launches during serving: {json.dumps(counts)}", flush=True)
+    print(f"apf npoint {npoint} launches during serving: {json.dumps(counts)}", flush=True)
     want = psess.predict_logits(req)
-    if got.shape != (LONG_BATCH, cfg["num_classes"]) or not np.isfinite(got).all():
-        fail(f"apf npoint {LONG_NPOINT} logits: shape {got.shape}, finite {np.isfinite(got).all()}")
+    if got.shape != (batch, cfg["num_classes"]) or not np.isfinite(got).all():
+        fail(f"apf npoint {npoint} logits: shape {got.shape}, finite {np.isfinite(got).all()}")
     same, gap, decided = untied(got, want)
-    agree = float(same[decided].mean())
+    agree = float(same[decided].mean()) if decided.any() else 1.0
     dlogit = float(np.abs(got - want).max())
     scale = float(np.abs(want).max())
-    print(f"apf npoint {LONG_NPOINT} serving: one request of {LONG_BATCH} clouds of {P4P_POINTS} "
+    print(f"apf npoint {npoint} serving: one request of {batch} clouds of {points} "
           f"points: argmax agreement {same.mean():.4f} over all (top-2 plain-path gaps of the "
           f"{int((~same).sum())} that differ: {[float(v) for v in gap[~same]]}), {agree:.4f} over the "
           f"{int(decided.sum())} whose gap exceeds {BF16_REL_TOL * scale:.4g} (need >= "
           f"{ARGMAX_AGREEMENT}); max|dlogit| {dlogit:.6g} vs max|logit| {scale:.6g} (bound "
           f"{LOGIT_REL_TOL} x max|logit|)", flush=True)
     if agree < ARGMAX_AGREEMENT or dlogit > LOGIT_REL_TOL * scale:
-        fail(f"apf npoint {LONG_NPOINT} kernel-path logits disagree with the plain path")
-    for name in ("fps", "knn", "group_encoder", "apf_block", "attention"):
+        fail(f"apf npoint {npoint} kernel-path logits disagree with the plain path")
+    for name in need:
         if counts.get(name, 0) <= 0:
-            fail(f"the apf npoint {LONG_NPOINT} serving path never launched the {name} kernel")
+            fail(f"the apf npoint {npoint} serving path never launched the {name} kernel")
+    for name in unused:
+        if counts.get(name, 0):
+            fail(f"the apf npoint {npoint} serving path launched {name}, which it must leave")
     tp1 = cuda_ms(torch, lambda: psess.predict_logits(req), 1)
     tk1 = cuda_ms(torch, lambda: sess.predict_logits(req), 3)
     tk2 = cuda_ms(torch, lambda: sess.predict_logits(req), 3)
     tp2 = cuda_ms(torch, lambda: psess.predict_logits(req), 1)
-    print(f"apf npoint {LONG_NPOINT} request of {LONG_BATCH}: kernel path {(tk1 + tk2) / 2:.3f} ms "
+    print(f"apf npoint {npoint} request of {batch}: kernel path {(tk1 + tk2) / 2:.3f} ms "
           f"(runs {tk1:.3f}, {tk2:.3f}), plain path {(tp1 + tp2) / 2:.3f} ms (runs {tp1:.3f}, "
           f"{tp2:.3f})", flush=True)
     del psess, plain
@@ -1246,13 +1260,15 @@ def main() -> None:
         ("APF", ln_apf, attention_kernel.attention_block_weights(blk.attention), heads),
         ("Pix4Point", ln_p4p, attention_kernel.attention_block_weights(vblk.attn), vh),
         ("renderer", ln_rend, attention_kernel.attention_block_weights(rblk.self_attention), rh)])
-    results["attn_block"] = {k: v for k, v in ab["APF"].items() if not k.startswith("train")}
+    results["attn_block"] = {k: v for k, v in ab["APF"].items()
+                             if not k.startswith("train") and k != "flops"}
     print(f"attn_block phase: {time.perf_counter() - t_ab:.1f} s", flush=True)
 
     # -- attention at S = 1024: APF slim2 with npoint 1024, then the forward
     #    and backward kernels alone on its block 0 --------------------------
     t_long = time.perf_counter()
-    long = apf_long_phase(torch, dev, _build, model)
+    long = apf_long_phase(torch, dev, _build, model, LONG_NPOINT, LONG_BATCH, P4P_POINTS, SEED + 5,
+                          ("fps", "knn", "group_encoder", "apf_block", "attention"), ())
     with torch.inference_mode():
         lblk = long["block"]
         qkv_l = linear(layer_norm(long["tokens"], lblk.norm1), lblk.attention.qkv).contiguous()
@@ -1297,29 +1313,64 @@ def main() -> None:
     print(f"S=1024 phase: {time.perf_counter() - t_long:.1f} s", flush=True)
     torch.cuda.synchronize()
 
-    def fmt(r):
+    # -- attention above the blocks' gate: APF slim2 with npoint 1536, whose
+    #    blocks run unfused, then the attention kernel alone on its block 0 --
+    t_longer = time.perf_counter()
+    longer = apf_long_phase(torch, dev, _build, model, LONGER_NPOINT, LONGER_BATCH, LONGER_POINTS,
+                            SEED + 7, ("fps", "group_encoder", "mha_qkv"), ("apf_block", "attention"))
+    with torch.inference_mode():
+        lblk = longer["block"]
+        qkv_x = linear(layer_norm(longer["tokens"], lblk.norm1), lblk.attention.qkv).contiguous()
+        Bx, Sx = qkv_x.shape[:2]
+        a_x = attention_kernel.mha_qkv(qkv_x, heads)
+        d = held(f"mha_qkv S={Sx}", a_x, attention_kernel.reference_mha_qkv(qkv_x, heads),
+                 f"{tuple(qkv_x.shape)} heads {heads}")
+        att_longer = dict(
+            max_abs_err=d, ms=cuda_ms(torch, lambda: attention_kernel.mha_qkv(qkv_x, heads), 5),
+            plain_ms=cuda_ms(torch, lambda: attention_kernel.reference_mha_qkv(qkv_x, heads), 2),
+            **bound(4.0 * Bx * Sx * Sx * E, nbytes(qkv_x, a_x)))
+        q, k, v = heads_of(qkv_x, heads)
+        att_longer["library_ms"] = cuda_ms(torch, lambda: sdpa(q, k, v), 5)
+        del q, k, v, a_x
+    print(f"S={Sx} phase: {time.perf_counter() - t_longer:.1f} s", flush=True)
+    torch.cuda.synchronize()
+
+    def fmt(r, flops=None):
         lib = "none" if r.get("library_ms") is None else f"{r['library_ms']:.4f} ms"
-        return (f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+        line = (f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
                 f"ms ({r['bound_by']}), library call {lib}")
+        if flops is not None:  # useful FLOPs: 4 B S^2 E of attention (+ 8 B S E^2 of projection)
+            line += (f"; {flops / r['ms'] / 1e9:.1f} TFLOP/s, "
+                     f"{r['ms'] / r['library_ms']:.2f}x the library call")
+        return line
+
+    attn_flops = lambda t: 4.0 * t.shape[0] * t.shape[1] ** 2 * t.shape[2] / 3
 
     for name, res in apf_shapes.items():
         print(f"time {name} at the APF shape {res['shape']}: {fmt(res)}", flush=True)
     for name, res in results.items():
-        print(f"time {name} at {res['shape']}: {fmt(res)}", flush=True)
-    print(f"time attention S=513 {tuple(qkv5.shape)} heads {vh}: {fmt(att513)}", flush=True)
-    print(f"time attention S=197 {tuple(qkv197.shape)} heads {rh}: {fmt(att197)}", flush=True)
-    print(f"time attention S=1024 {tuple(qkv_l.shape)} heads {heads}: {fmt(att_long)}", flush=True)
+        flops = {"mha_qkv": attn_flops(qkv), "attn_block": 8.0 * B * G * E * E + 4.0 * B * G * G * E}
+        print(f"time {name} at {res['shape']}: {fmt(res, flops.get(name))}", flush=True)
+    print(f"time attention S=513 {tuple(qkv5.shape)} heads {vh}: {fmt(att513, attn_flops(qkv5))}",
+          flush=True)
+    print(f"time attention S=197 {tuple(qkv197.shape)} heads {rh}: {fmt(att197, attn_flops(qkv197))}",
+          flush=True)
+    print(f"time attention S=1024 {tuple(qkv_l.shape)} heads {heads}: "
+          f"{fmt(att_long, attn_flops(qkv_l))}", flush=True)
+    print(f"time attention S={Sx} {tuple(qkv_x.shape)} heads {heads}: "
+          f"{fmt(att_longer, attn_flops(qkv_x))}", flush=True)
     print(f"time attention backward S=1024 {tuple(qkv_l.shape)} heads {heads}: {fmt(att_long_bwd)}",
           flush=True)
     for label, res in ab.items():
-        print(f"time attn_block {label} {res['shape']}: {fmt(res)}; forward + backward: kernel path "
-              f"{res['train_ms']:.4f} ms, plain path {res['train_plain_ms']:.4f} ms", flush=True)
+        print(f"time attn_block {label} {res['shape']}: {fmt(res, res['flops'])}; forward + "
+              f"backward: kernel path {res['train_ms']:.4f} ms, plain path "
+              f"{res['train_plain_ms']:.4f} ms", flush=True)
     for name, res in quant_shapes.items():
         print(f"time quant_dense {name} {res['shape']}: {fmt(res)} (the int8 product alone, "
               f"torch._int_mm); the bf16 GEMM kernel at this shape {res['gemm_ms']:.4f} ms",
               flush=True)
     paths = (counts, train_counts, p4p["counts"], rend["counts"], quant["counts"], ab_counts,
-             long["counts"])
+             long["counts"], longer["counts"])
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(c.get(name, 0) for c in paths), **results[name]}

@@ -9,12 +9,16 @@ falls back.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` turns a non-zero code into an exception.
+
+``python -m pointvit_tpu_torch._build`` prints ptxas's report for every
+kernel (registers, spills, wgmma warnings): :func:`ptxas_report`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import re
 import os
 import shutil
 import subprocess
@@ -23,8 +27,8 @@ import time
 from pathlib import Path
 
 __all__ = [
-    "LaunchCounter", "build_kernels", "check", "kernel", "launch_counts", "require",
-    "reset_launch_counts", "stream_ptr",
+    "LaunchCounter", "build_kernels", "check", "kernel", "launch_counts", "ptxas_report",
+    "require", "reset_launch_counts", "stream_ptr",
 ]
 
 _PKG = Path(__file__).resolve().parent
@@ -114,6 +118,34 @@ def _build_all() -> dict[str, ctypes.CDLL]:
     return {s.stem: ctypes.CDLL(str(out_dir / f"lib{s.stem}.so")) for s in _sources()}
 
 
+def ptxas_report() -> str:
+    """Compile every source once more with ``-Xptxas -v`` (into
+    ``build/pointvit_tpu_torch/ptxas``) and return, per kernel, the
+    registers and spill bytes ptxas reports and the codes of its
+    performance notes (C75xx: wgmma serialised or fences injected)."""
+    nvcc = _nvcc()
+    out_dir = BUILD_ROOT / "ptxas"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lines = []
+    for src in _sources():
+        cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC),
+               "-o", str(out_dir / f"lib{src.stem}.so"), str(src)]
+        done = subprocess.run(cmd, capture_output=True, text=True)
+        log = done.stdout + done.stderr
+        notes = sorted(set(re.findall(r"\((C75\d\d)\)", log)))
+        for fn, body in re.findall(r"Function properties for (\S+)\n(.*?Used \d+ registers)", log, re.S):
+            # the mangled name's length-prefixed part that ends in "kernel"
+            parts = [fn[m.end():m.end() + int(m.group())] for m in re.finditer(r"\d+", fn)]
+            name = next((p for p in parts if p.endswith("kernel")), fn)
+            regs = re.search(r"Used (\d+) registers", body).group(1)
+            spill = re.search(r"(\d+) bytes spill stores", body)
+            lines.append(f"{src.name} {name}: {regs} registers, "
+                         f"{spill.group(1) if spill else '?'} bytes spilled")
+        if notes:
+            lines.append(f"{src.name}: ptxas notes {', '.join(notes)}")
+    return "\n".join(lines)
+
+
 def build_kernels() -> float:
     """Build (or load) every kernel library; returns the seconds it took."""
     t0 = time.perf_counter()
@@ -163,3 +195,7 @@ def require(t, name: str, dtype, ndim: int, device=None) -> None:
         raise ValueError(f"{name}: must be contiguous")
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: data must start on a 16-byte boundary")
+
+
+if __name__ == "__main__":
+    print(ptxas_report())

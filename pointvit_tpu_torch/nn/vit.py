@@ -16,7 +16,10 @@ kernels on the card), and the adapter's dropout and both drop-paths draw
 from the generator given. A quantized block (``quantized=True``, inference
 only) runs that unfused forward too, with its qkv, proj, fc1 and fc2 as
 int8 products, as the JAX block leaves its fused kernels when quantized
-(``nn/vit.py:181``).
+(``nn/vit.py:181``). So does a block whose shape lies outside the fused
+gate (:func:`~pointvit_tpu_torch.ops.block_kernel.apf_block_shapes_ok`:
+head dim 64, S ≤ 1024), as the JAX block leaves its fused kernel there
+(``nn/vit.py:53-75``); its attention kernel takes any S.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from pointvit_tpu_torch.nn.layers import (
 )
 from pointvit_tpu_torch.ops.block_kernel import (
     LN_EPS,
+    apf_block_shapes_ok,
     apf_block_weights,
     fused_apf_block,
     reference_apf_block,
@@ -84,7 +88,7 @@ class APFBlock(nn.Module):
                 generator: torch.Generator | None = None) -> torch.Tensor:
         """(B, S, E) → (B, S, E) in the block's dtype."""
         x = x.to(self.dtype)
-        if train or self.quantized:
+        if train or self.quantized or not apf_block_shapes_ok(*x.shape[-2:], self.num_heads):
             return self.forward_unfused(x, train=train, generator=generator)
         weights = apf_block_weights(self)
         if self.implementation == "torch":
@@ -111,7 +115,7 @@ class ViTBlock(nn.Module):
         x = x + pos;  x = x + attn(norm1(x));  out = x + mlp(norm2(x))
 
     At inference it runs :func:`~pointvit_tpu_torch.ops.vit_block_kernel.fused_vit_block`:
-    on the card the kernel chain, for the shapes its attention kernels take
+    on the card the kernel chain, for the shapes of the blocks' gate
     (head dim 64, S ≤ 1024: the JAX package's fused gate,
     ``pallas_block.py:97-110``, at head dim 64), raising on the others
     rather than running plain code; with ``implementation='torch'``, or on the CPU, its
@@ -161,9 +165,10 @@ class SerialAdapterBlock(nn.Module):
     (each adapter is residual itself: a(y) = y + up(gelu(down(y)))). At
     inference it runs
     :func:`~pointvit_tpu_torch.ops.serial_block_kernel.fused_serial_block`:
-    on the card the kernel chain (head dim 64, S ≤ 1024, the attention
-    kernels' limit; other shapes raise), with ``implementation='torch'`` or
-    on the CPU its plain version. Training is not ported yet.
+    on the card the kernel chain (head dim 64, S ≤ 1024, the blocks' gate;
+    other shapes raise until its unfused forward is ported, ROADMAP A9),
+    with ``implementation='torch'`` or on the CPU its plain version.
+    Training is not ported yet.
     """
 
     def __init__(self, dim: int, num_heads: int, adapter_bottleneck: int = 64,

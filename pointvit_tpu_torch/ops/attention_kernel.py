@@ -5,7 +5,7 @@ its ``autograd.Function``.
 
 Counterpart of ``pointvit_tpu/ops/pallas_attention.py``::
 
-    fused_mha_qkv         (B, S, 3E) → (B, S, E)   _mha_qkv_pallas      → csrc/block.cu attention kernels
+    fused_mha_qkv         (B, S, 3E) → (B, S, E)   _mha_qkv_pallas      → csrc/attention.cu
       its backward        qkv, g → dqkv            _mha_qkv_bwd_pallas  → csrc/attention_bwd.cu
     fused_mha             (B, S, H, D) x 3 → (B, S, H, D): pack, the two kernels above, split
     fused_attention_block x (B, S, E) → (B, S, E)  _attn_block_pallas   → csrc/attn_block.cu + csrc/gemm.cu
@@ -22,8 +22,8 @@ which accumulate in f32; g cast to qkv.dtype first (``:427``). Kernel and
 plain version therefore differ only in summation order.
 
 A CPU tensor takes the plain versions in both directions; a CUDA tensor
-launches the kernels (bf16, head dim 64, S up to each kernel's limit: 1024
-for the attention forward and backward, 736 for the fused sublayer's first
+launches the kernels (bf16, head dim 64; S: any for the attention forward,
+up to 1024 for its backward, up to 736 for the fused sublayer's first
 launch) and raises on anything else. ``implementation='torch'`` takes the
 plain versions on any device.
 """
@@ -85,8 +85,8 @@ def reference_mha_qkv_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) ->
 
 
 def mha_qkv(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """Attention forward (B, S, 3E) → (B, S, E): ``attention_kernel`` of
-    ``csrc/block.cu`` on a CUDA tensor, the plain version on a CPU tensor."""
+    """Attention forward (B, S, 3E) → (B, S, E): ``csrc/attention.cu`` on a
+    CUDA tensor (head dim 64, any S), the plain version on a CPU tensor."""
     if not qkv.is_cuda:
         split_heads(qkv, num_heads)
         return reference_mha_qkv(qkv, num_heads)

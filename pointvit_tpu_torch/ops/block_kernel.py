@@ -1,7 +1,7 @@
-"""The APF block at inference: LayerNorm and attention kernels
-(``csrc/block.cu``), the block's launch chain, and its plain version. The
-LayerNorm with the positional re-add and the attention kernel here also
-serve the Pix4Point block (:mod:`pointvit_tpu_torch.ops.vit_block_kernel`).
+"""The APF block at inference: LayerNorm kernels (``csrc/block.cu``), the
+attention kernel (``csrc/attention.cu``), the block's launch chain, and its
+plain version. The LayerNorm with the positional re-add and the attention
+kernel here also serve the Pix4Point block (:mod:`pointvit_tpu_torch.ops.vit_block_kernel`).
 
 Counterpart of the APF part of ``pointvit_tpu/ops/pallas_block.py``
 (``_attn_half_kernel`` + ``_mlp_half_kernel``)::
@@ -30,6 +30,7 @@ from pointvit_tpu_torch._build import (
 from pointvit_tpu_torch.ops.gemm_kernel import gemm
 
 __all__ = [
+    "apf_block_shapes_ok",
     "apf_block_weights",
     "fused_apf_block",
     "launch_chain",
@@ -163,7 +164,7 @@ def reference_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 
 def attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     """Packed-qkv MHA (B, S, 3E) → (B, S, E): kernel on CUDA (bf16, head
-    dim 64, S up to :func:`attention_max_seq`), plain on CPU."""
+    dim 64, any S), plain on CPU."""
     if not qkv.is_cuda:
         split_heads(qkv, num_heads)
         return reference_attention(qkv, num_heads)
@@ -184,29 +185,26 @@ def split_heads(qkv: torch.Tensor, num_heads: int) -> tuple[int, int, int, int]:
 
 
 def attention_max_seq(head_dim: int) -> int:
-    """The longest sequence the attention kernels take at ``head_dim`` (0:
-    that head dim is not taken); ``pv_attention_max_seq`` of the built
-    library: 1024 at head dim 64, the JAX package's fused gate (one kernel
-    up to 576, a key-tiled one above)."""
-    return kernel("block", "pv_attention_max_seq", [INT])(head_dim)
+    """The blocks' gate: the longest sequence the fused block chains take
+    at ``head_dim`` (0: that head dim is not taken). 1024 at head dim 64,
+    the JAX package's fused gate (``pallas_block.py:97-110``: S·S·4 bytes
+    of logits within 4 MiB). The attention kernel itself takes any S; above
+    this the APF block leaves its fused chain, as the JAX block does."""
+    return 1024 if head_dim == 64 else 0
 
 
 def launch_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """One launch of ``csrc/block.cu::attention_kernel`` on a CUDA tensor,
-    uncounted: each caller counts it under its own name."""
+    """One launch of ``csrc/attention.cu`` on a CUDA tensor (head dim 64,
+    any S), uncounted: each caller counts it under its own name."""
     B, S, E, D = split_heads(qkv, num_heads)
     require(qkv, "qkv", torch.bfloat16, 3)
-    limit = attention_max_seq(D)
-    if limit == 0 or S > limit:
-        raise ValueError(
-            f"the attention kernel takes head_dim 64 and S ≤ {limit or 'n/a'}; "
-            f"got head_dim {D}, S {S}"
-        )
+    if D != 64:
+        raise ValueError(f"the attention kernel takes head_dim 64; got head_dim {D}, S {S}")
     out = torch.empty((B, S, E), dtype=torch.bfloat16, device=qkv.device)
-    fn = kernel("block", "pv_attention", [PTR, PTR, INT, INT, INT, INT, FLOAT, PTR])
+    fn = kernel("attention", "pv_attention", [PTR, PTR, INT, INT, INT, INT, FLOAT, PTR])
     err = fn(qkv.data_ptr(), out.data_ptr(), B, S, num_heads, D, D ** -0.5,
              stream_ptr(qkv.device))
-    check(err, "block", "pv_attention")
+    check(err, "attention", "pv_attention")
     return out
 
 
@@ -240,6 +238,14 @@ def reference_apf_block(x: torch.Tensor, weights, num_heads: int) -> torch.Tenso
     a = rd(torch.relu(a @ wdn + bdn))
     a = a @ wup + bup
     return (mlp + a + 2.0 * x1).to(dt).reshape(B, S, E)
+
+
+def apf_block_shapes_ok(S: int, E: int, num_heads: int) -> bool:
+    """Whether the APF block takes its fused chain at this shape: head dim
+    64 and S ≤ :func:`attention_max_seq` (1024), inside the JAX package's
+    gate ``fused_block_shapes_ok``. Elsewhere ``APFBlock`` runs its unfused
+    forward, whose attention kernel takes any S."""
+    return E % num_heads == 0 and 0 < S <= attention_max_seq(E // num_heads)
 
 
 def fused_apf_block(x: torch.Tensor, weights, num_heads: int) -> torch.Tensor:

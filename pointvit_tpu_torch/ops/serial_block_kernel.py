@@ -55,10 +55,9 @@ launches = LaunchCounter("serial_block")
 
 
 def serial_block_shapes_ok(S: int, E: int, num_heads: int) -> bool:
-    """Whether the kernel chain takes the shape: the attention kernel's head
-    dim (64) and S ≤ :func:`attention_max_seq`. Every torchvision preset of
-    the renderer passes (S = 197 or 50, head dim 64). Asks the built
-    library."""
+    """Whether the kernel chain takes the shape: head dim 64 and S ≤
+    :func:`attention_max_seq` (1024), the blocks' gate. Every torchvision preset of
+    the renderer passes (S = 197 or 50, head dim 64)."""
     if E % num_heads:
         return False
     return 0 < S <= attention_max_seq(E // num_heads)

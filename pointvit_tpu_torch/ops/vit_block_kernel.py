@@ -11,8 +11,8 @@ Counterpart of ``pointvit_tpu/ops/pallas_block.py::fused_vit_block``
 
 On the card the block is a chain of hand-written launches: the LayerNorm
 that adds ``pos`` and writes both xp and LN1(xp) (``csrc/block.cu``), the
-qkv GEMM, the packed-qkv attention kernels (head dim 64, S ≤ 1024: Pix4Point's
-S = 513 included), proj with the xp residual in its epilogue, LN2, fc1 with
+qkv GEMM, the packed-qkv attention kernel (``csrc/attention.cu``; the chain
+takes head dim 64 and S ≤ 1024, Pix4Point's S = 513 included), proj with the xp residual in its epilogue, LN2, fc1 with
 GELU, fc2 with the x1 residual (``csrc/gemm.cu``). The rounding follows
 ``_vit_block_pallas``: LN affines and biases are rounded to bf16
 (``pallas_block.py:343-344``); LN statistics are f32 with eps 1e-6; the
@@ -52,9 +52,9 @@ launches = LaunchCounter("vit_block")
 
 def vit_block_shapes_ok(S: int, E: int, num_heads: int) -> bool:
     """Whether the kernel chain takes the shape: head dim and S within the
-    attention kernels' limit (:func:`attention_max_seq`: head dim 64, S ≤
-    1024), which lies inside the JAX package's gate ``fused_block_shapes_ok``
-    (``pallas_block.py:97-110``). Asks the built library."""
+    blocks' gate (:func:`attention_max_seq`: head dim 64, S ≤ 1024), which
+    lies inside the JAX package's gate ``fused_block_shapes_ok``
+    (``pallas_block.py:97-110``)."""
     if E % num_heads:
         return False
     limit = attention_max_seq(E // num_heads)

@@ -169,3 +169,48 @@ def test_train_raises_and_preset_is_slim2():
     assert (cfg["embedding_dim"], cfg["depth"], cfg["num_heads"], cfg["npoint"], cfg["nsample"],
             cfg["encoder_second_width"], cfg["num_classes"], cfg["dtype"]) == (
         768, 12, 12, 196, 16, 384, 40, torch.bfloat16)
+
+
+# A sequence above the fused blocks' gate (S ≤ 1024 at head dim 64): one
+# head of 64, so the gate decides; npoint 1040 over one 2048-point cloud.
+LONG_CFG = dict(num_classes=10, embedding_dim=64, npoint=1040, nsample=8, in_channels=3, depth=1,
+                num_heads=1, encoder_second_width=64)
+
+
+def test_apf_above_the_fused_gate_runs_unfused_and_matches_the_jax_model(monkeypatch):
+    """Above S = 1024 the APF block leaves its fused chain for its unfused
+    forward (the JAX package's dispatch, whose attention kernel takes any
+    S); at S ≤ 1024 it keeps the chain. The logits at S = 1040 match the
+    JAX model's."""
+    from pointvit_tpu_torch.nn import vit
+
+    rng = np.random.default_rng(3)
+    points = rng.standard_normal((1, 2048, 3)).astype(np.float32)
+    jmodel = JAPF(**LONG_CFG)
+    variables = _np_tree(jax.jit(jmodel.init)({"params": jax.random.PRNGKey(2)},
+                                              jnp.asarray(points)))
+    ad = variables["params"]["blocks_0"]["adapter"]
+    ad["up_proj"]["kernel"] = 0.1 * rng.standard_normal(ad["up_proj"]["kernel"].shape).astype(np.float32)
+    model = load_flax_variables(AdaptPointFormer(**LONG_CFG), variables).eval()
+
+    taken = []
+    unfused, fused = vit.APFBlock.forward_unfused, vit.fused_apf_block
+    monkeypatch.setattr(vit.APFBlock, "forward_unfused",
+                        lambda self, x, **kw: taken.append(("unfused", x.shape[1])) or unfused(self, x, **kw))
+    monkeypatch.setattr(vit, "fused_apf_block",
+                        lambda x, *a: taken.append(("fused", x.shape[1])) or fused(x, *a))
+    with torch.inference_mode():
+        got = model(torch.from_numpy(points)).numpy()
+    assert taken == [("unfused", 1040)]
+    with jax.default_matmul_precision("highest"):
+        want = np.asarray(jax.jit(lambda v, p: jmodel.apply(v, p, train=False))(variables, jnp.asarray(points)))
+    assert got.shape == (1, LONG_CFG["num_classes"]) and np.isfinite(got).all()
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err <= LOGIT_REL_TOL, err
+
+    short = AdaptPointFormer(**{**LONG_CFG, "npoint": 1024})
+    short.load_state_dict(model.state_dict())
+    taken.clear()
+    with torch.inference_mode():
+        short.eval()(torch.from_numpy(points))
+    assert taken == [("fused", 1024)]

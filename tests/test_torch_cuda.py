@@ -120,22 +120,24 @@ def test_gemm_refuses_what_it_does_not_take(dev):
         gemm(torch.zeros(96, 8, device=dev, dtype=torch.bfloat16), w[:, :8].contiguous(), group=48)
 
 
-@pytest.mark.parametrize("S", [16, 65, 196, 416, 513, 576, 577, 768, 1000, 1024])
-def test_attention_and_layernorm(dev, S):
+@pytest.mark.parametrize("B,S", [(3, S) for S in (1, 16, 65, 196, 197, 416, 513, 576, 577, 768,
+                                                  1000, 1024, 1025, 1600, 2048)] + [(1, 197)])
+def test_attention_and_layernorm(dev, B, S):
     gen = torch.Generator().manual_seed(S)
-    qkv = _rand(gen, 3, S, 3 * 768, dev=dev, scale=2.0)
+    qkv = _rand(gen, B, S, 3 * 768, dev=dev, scale=2.0)
     _assert_rel(block_kernel.attention(qkv, 12), block_kernel.reference_attention(qkv, 12))
-    x = _rand(gen, 3 * S, 768, dev=dev, scale=3.0)
+    x = _rand(gen, B * S, 768, dev=dev, scale=3.0)
     g, b = _rand(gen, 768, dev=dev), _rand(gen, 768, dev=dev)
     _assert_rel(block_kernel.layer_norm(x, g, b), block_kernel.reference_layer_norm(x, g, b))
 
 
-def test_attention_refuses_other_head_dims_and_long_sequences(dev):
+def test_attention_refuses_other_head_dims(dev):
     with pytest.raises(ValueError, match="head_dim 64"):
         block_kernel.attention(torch.zeros(1, 16, 3 * 128, device=dev, dtype=torch.bfloat16), 4)
+    # 1024 is the blocks' gate; the attention kernel itself serves longer sequences.
     assert block_kernel.attention_max_seq(64) == 1024
-    with pytest.raises(ValueError, match="head_dim 64"):
-        block_kernel.attention(torch.zeros(1, 1025, 3 * 768, device=dev, dtype=torch.bfloat16), 12)
+    qkv = _rand(torch.Generator().manual_seed(11), 1, 1025, 3 * 768, dev=dev, scale=2.0)
+    _assert_rel(block_kernel.attention(qkv, 12), block_kernel.reference_attention(qkv, 12))
 
 
 @pytest.mark.parametrize("S", [16, 65, 196, 416, 417, 448, 513, 577, 768, 1000, 1024])
@@ -221,6 +223,35 @@ def test_encoder_and_block_chains_and_their_launch_counts(dev):
     counts = _build.launch_counts()
     assert counts["group_encoder"] == 1 and counts["apf_block"] == 1
     assert counts["gemm"] == 6 + 6 and counts["layernorm"] == 3 and counts["attention"] == 1
+
+
+def test_apf_above_the_fused_gate_serves_through_the_attention_kernel(dev):
+    """APF with npoint 1100 (S above the blocks' gate of 1024) serves on the
+    card through the unfused block and the attention kernel, and agrees with
+    the plain path."""
+    import numpy as np
+
+    from pointvit_tpu_torch.models import AdaptPointFormer, apf_preset_config
+
+    cfg = apf_preset_config("slim2", npoint=1100)
+    model = AdaptPointFormer(**cfg)
+    gen = torch.Generator().manual_seed(12)
+    with torch.no_grad():
+        for blk in model.blocks:
+            blk.adapter.up_proj.weight.copy_(torch.randn(blk.adapter.up_proj.weight.shape, generator=gen) * 0.05)
+    plain = AdaptPointFormer(**cfg, implementation="torch")
+    plain.load_state_dict(model.state_dict())
+    pts = torch.from_numpy(np.random.default_rng(12).standard_normal((2, 2048, 3)).astype(np.float32))
+    model, plain = model.to(dev).eval(), plain.to(dev).eval()
+    with torch.inference_mode():
+        _build.reset_launch_counts()
+        got = model(pts.to(dev))
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        want = plain(pts.to(dev))
+    assert counts["mha_qkv"] == cfg["depth"] and counts["apf_block"] == 0 and counts["attention"] == 0
+    assert torch.isfinite(got).all()
+    _assert_rel(got, want, tol=0.05)
 
 
 def test_apf_train_step_launches_the_training_kernels(dev):
