@@ -22,7 +22,11 @@
    trainable gradient of the first step, and the trainable parameters after
    the last, must agree between the paths; frozen parameters must not
    change; FPS, kNN and both attention kernels must launch during the 5
-   timed steps. Both paths' ms per step and clouds/s are printed.
+   timed steps. Both paths' ms per step and clouds/s are printed. Then one
+   step of slim2 with npoint 1536 on 8 clouds of 4096 points, above the
+   JAX package's Pallas gate for the attention backward, on both paths
+   from the same weights, batch and draws: first loss and gradients held as
+   above, and the attention backward kernel must launch.
 4. Pix4Point serving: ``build_model`` of the ``train_pix4point.py`` config
    (vit_small: E=384, 12 blocks x 6 heads, k 16, 15 classes; bf16) at full
    width and depth with seeded random weights (BN statistics, LN affines,
@@ -62,7 +66,8 @@
    it). The quant-dense kernel is held bit for bit at the eight int8
    product shapes of quantized serving, on the inputs the served model gave
    those layers, and timed beside ``torch._int_mm`` on the already
-   quantized operands (the int8 product alone) and the bf16 GEMM kernel.
+   quantized operands (the int8 product alone) and the bf16 GEMM kernel,
+   with its row quantizer timed alone and its achieved TOP/s.
 8. The fused attention sublayer: ``fused_attention_block`` forward and
    backward at the attention sublayers of the three served models (APF
    (256, 196, 768) x 12 heads, Pix4Point (256, 513, 384) x 6, renderer
@@ -76,13 +81,19 @@
    32 clouds of 2048 points on both paths (the serving gate; the fused
    block chain at the longest S it takes), then the attention forward and
    backward kernels are held against their plain versions on its block 0's
-   qkv (32, 1024, 2304), the backward bit-equal across two runs.
+   qkv (32, 1024, 2304).
 10. Attention above the blocks' gate: APF slim2 with npoint 1536 serves one
    request of 8 clouds of 4096 points on both paths (the serving gate; the
    blocks leave their fused chain for the unfused forward, as the JAX
    package does above S = 1024, so the attention kernel launches as
    mha_qkv and the fused block never), then the attention kernel is held
    against its plain version on its block 0's qkv (8, 1536, 2304).
+11. The attention backward kernel at five shapes: block 0's qkv of APF
+   (256, 196, 2304), the renderer (1536, 197, 2304), Pix4Point (256, 513,
+   1152; 6 heads) and of steps 9 and 10 (S = 1024 and 1536), with a seeded
+   bf16 cotangent: dq, dk and dv each within 2^-6 of its own max|ref| of
+   the plain version, two runs bit-equal, timed beside its bound and SDPA's
+   backward (timed only) with its achieved TFLOP/s.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``. Any failure exits
@@ -290,12 +301,12 @@ def untied(got: np.ndarray, want: np.ndarray) -> tuple[np.ndarray, np.ndarray, n
     return same, gap, gap > BF16_REL_TOL * float(np.abs(want).max())
 
 
-def shape_clouds(rng, n: int, classes: int) -> tuple[np.ndarray, np.ndarray]:
+def shape_clouds(rng, n: int, classes: int, points: int = POINTS) -> tuple[np.ndarray, np.ndarray]:
     """Seeded class-separable clouds: class c is a zero-mean Gaussian with
     its own per-axis scales, rotated at random per cloud."""
     scales = 0.3 + 0.7 * rng.random((classes, 3))
     labels = rng.integers(0, classes, n)
-    pts = rng.standard_normal((n, POINTS, 3)) * scales[labels][:, None, :]
+    pts = rng.standard_normal((n, points, 3)) * scales[labels][:, None, :]
     q, _ = np.linalg.qr(rng.standard_normal((n, 3, 3)))
     return np.einsum("npi,nij->npj", pts, q).astype(np.float32), labels
 
@@ -375,21 +386,17 @@ def train_phase(torch, dev, _build) -> dict:
     if not d <= TRAIN_LOSS_REL_TOL:
         fail("the first training loss disagrees between the kernel and plain paths")
     gk, gp, gf = (res["grads"][k] for k in ("kernel", "plain", "f32"))
-    zero = [n for n in trainable if n.endswith(PRE_BN_BIASES)]
-    live = [n for n in trainable if n not in zero]
+    worst_grad, worst_zero, tensors, live = grad_gates(torch, trainable, gk, gp)
     flat = lambda g: torch.cat([g[n].float().flatten() for n in live])  # noqa: E731
     total = flat(gp).norm().item()
-    worst_zero = max((max(gk[n].float().norm().item(), gp[n].float().norm().item()) / total, n)
-                     for n in zero)
-    tensors = [n for n in live if gf[n].numel() > 1]
-    worst_grad = max((rel_l2(gk[n], gp[n]), n) for n in tensors)
     worst_ratio = max((rel_l2(gk[n], gf[n]) / rel_l2(gp[n], gf[n]), n) for n in tensors)
     ek, ep = rel_l2(flat(gk), flat(gf)), rel_l2(flat(gp), flat(gf))
     print(f"train: first-step gradients, {len(tensors)} trainable tensors: kernel vs plain path "
           f"worst relative L2 {worst_grad[0]:.3g} ({worst_grad[1]}; bound {TRAIN_GRAD_REL_TOL}); "
           f"(kernel vs f32) / (plain vs f32) worst {worst_ratio[0]:.3g} ({worst_ratio[1]}; bound "
           f"{TRAIN_GRAD_F32_RATIO}); all {len(live)} together: kernel vs f32 {ek:.3g}, plain vs "
-          f"f32 {ep:.3g}, kernel vs plain {rel_l2(flat(gk), flat(gp)):.3g}; {len(zero)} exactly-zero "
+          f"f32 {ep:.3g}, kernel vs plain {rel_l2(flat(gk), flat(gp)):.3g}; "
+          f"{len(trainable) - len(live)} exactly-zero "
           f"gradients at most {worst_zero[0]:.3g} of the global norm {total:.4g} ({worst_zero[1]}; "
           f"bound {TRAIN_ZERO_GRAD_TOL})", flush=True)
     if not (worst_grad[0] <= TRAIN_GRAD_REL_TOL and worst_ratio[0] <= TRAIN_GRAD_F32_RATIO
@@ -421,6 +428,144 @@ def train_phase(torch, dev, _build) -> dict:
     del trainers, models
     torch.cuda.empty_cache()
     return res
+
+
+def grad_gates(torch, trainable, gk, gp) -> tuple[tuple, tuple, list, list]:
+    """Two paths' gradients (name -> tensor) over the trainable tensors:
+    the worst relative L2 (value, name) over the tensors of more than one
+    element, the largest exactly-zero gradient (biases before a train-mode
+    BatchNorm) relative to the plain path's global norm over the others,
+    the tensors compared, and those others."""
+    zero = [n for n in trainable if n.endswith(PRE_BN_BIASES)]
+    live = [n for n in trainable if n not in zero]
+    total = torch.cat([gp[n].float().flatten() for n in live]).norm().item()
+    worst_zero = max((max(gk[n].float().norm().item(), gp[n].float().norm().item()) / total, n)
+                     for n in zero)
+    tensors = [n for n in live if gp[n].numel() > 1]
+    return max((rel_l2(gk[n], gp[n]), n) for n in tensors), worst_zero, tensors, live
+
+
+def train_long_phase(torch, dev, _build) -> dict:
+    """One APF slim2 training step at npoint 1536 (LONGER_BATCH clouds of
+    LONGER_POINTS points), above the JAX package's Pallas gate for the
+    attention backward (S <= 1024 at 12 heads), where JAX runs the
+    recompute VJP and the port its backward kernel. The kernel path and the
+    plain path take the same step from the same weights, batch and draws:
+    the first loss and every trainable gradient are held to the training
+    gates, and both attention kernels must launch. Returns the launch
+    counts."""
+    from pointvit_tpu_torch.models import AdaptPointFormer, apf_preset_config, apf_trainable_mask
+    from pointvit_tpu_torch.train import Trainer, build_optimizer, timm_cosine_schedule
+
+    cfg = apf_preset_config("slim2", num_classes=TRAIN_CLASSES, npoint=LONGER_NPOINT)
+    models = {"kernel": AdaptPointFormer(**cfg), "plain": AdaptPointFormer(**cfg, implementation="torch")}
+    randomize(torch, models["kernel"], torch.Generator().manual_seed(SEED + 8))
+    models["plain"].load_state_dict(models["kernel"].state_dict())
+    trainable = sorted(apf_trainable_mask(models["kernel"]))
+    rng = np.random.default_rng(SEED + 8)
+    pts, lbl = shape_clouds(rng, LONGER_BATCH, TRAIN_CLASSES, LONGER_POINTS)
+    pts, lbl = torch.from_numpy(pts).to(dev), torch.from_numpy(lbl).to(dev)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_train_long_")
+    res = {"loss": {}, "grads": {}, "ms": {}}
+    for path, model in models.items():
+        sched = timm_cosine_schedule(LR, 100, 1, warmup_epochs=5, warmup_lr_init=1e-3)
+        opt = build_optimizer(model, sched, weight_decay=WEIGHT_DECAY,
+                              trainable_mask=apf_trainable_mask(model))
+        tr = Trainer(
+            model, train_dataset=None, test_dataset=None, optimizer=opt, schedule=sched,
+            batch_size=LONGER_BATCH, epochs=1, label_smoothing=LABEL_SMOOTHING,
+            output_dir=out_dir, seed=SEED, device=dev, train_loader=[], test_loader=[],
+            save_config_snapshot=False,
+        )
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, _, _ = tr.train_step(pts, lbl)
+        torch.cuda.synchronize()
+        res["ms"][path] = (time.perf_counter() - t0) * 1e3
+        if path == "kernel":
+            res["counts"] = _build.launch_counts()
+        res["loss"][path] = loss.item()
+        res["grads"][path] = {n: p.grad.detach().clone()
+                              for n, p in tr.model.named_parameters() if n in trainable}
+        del tr, opt
+    shutil.rmtree(out_dir)
+    lk, lp = res["loss"]["kernel"], res["loss"]["plain"]
+    d = abs(lk - lp) / abs(lp)
+    worst_grad, worst_zero, tensors, _ = grad_gates(torch, trainable, res["grads"]["kernel"],
+                                                    res["grads"]["plain"])
+    print(f"train npoint {LONGER_NPOINT}, {LONGER_BATCH} clouds of {LONGER_POINTS} points, one step: "
+          f"loss kernel path {lk:.6g}, plain path {lp:.6g}, |d| / |plain| {d:.3g} (bound "
+          f"{TRAIN_LOSS_REL_TOL}); gradients of {len(tensors)} trainable tensors, worst relative L2 "
+          f"{worst_grad[0]:.3g} ({worst_grad[1]}; bound {TRAIN_GRAD_REL_TOL}); exactly-zero "
+          f"gradients at most {worst_zero[0]:.3g} of the global norm ({worst_zero[1]}; bound "
+          f"{TRAIN_ZERO_GRAD_TOL}); the step (each path's first, so with its one-time costs; host "
+          f"clock, synchronised) kernel path "
+          f"{res['ms']['kernel']:.3f} ms, plain path {res['ms']['plain']:.3f} ms", flush=True)
+    print(f"train npoint {LONGER_NPOINT} launches: {json.dumps(res['counts'])}", flush=True)
+    if not (np.isfinite([lk, lp]).all() and d <= TRAIN_LOSS_REL_TOL):
+        fail(f"the npoint {LONGER_NPOINT} training loss disagrees between the paths")
+    if not (worst_grad[0] <= TRAIN_GRAD_REL_TOL and worst_zero[0] <= TRAIN_ZERO_GRAD_TOL):
+        fail(f"the npoint {LONGER_NPOINT} gradients of the kernel path disagree with the plain path's")
+    for name in ("mha_qkv", "mha_qkv_bwd"):
+        if res["counts"].get(name, 0) <= 0:
+            fail(f"the npoint {LONGER_NPOINT} training step never launched the {name} kernel")
+    del models
+    torch.cuda.empty_cache()
+    return res
+
+
+def attention_bwd_phase(torch, label, qkv, heads, seed, iters=5, plain_iters=1) -> dict:
+    """The attention backward kernel on ``qkv`` (a model's block-0 qkv) with
+    a seeded bf16 cotangent: dq, dk and dv each within BF16_REL_TOL of its
+    own max|ref| of the plain version, two runs bit-equal; then timed beside
+    its bound (10 B S^2 E useful FLOPs) and SDPA's backward on the same
+    inputs (timed only)."""
+    from pointvit_tpu_torch.ops import attention_kernel
+
+    B, S, E3 = qkv.shape
+    E = E3 // 3
+    g = torch.randn((B, S, E), generator=torch.Generator().manual_seed(seed)).to(qkv.device, torch.bfloat16)
+    with torch.inference_mode():
+        dk1 = attention_kernel.mha_qkv_bwd(qkv, g, heads)
+        dk2 = attention_kernel.mha_qkv_bwd(qkv, g, heads)
+        dp = attention_kernel.reference_mha_qkv_bwd(qkv, g, heads)
+        torch.cuda.synchronize()
+        if not torch.equal(dk1, dk2):
+            fail(f"mha_qkv_bwd {label}: two runs on the same inputs are not bit-equal")
+        if not torch.isfinite(dk1).all():
+            fail(f"mha_qkv_bwd {label}: the gradient is not finite")
+        d, r = rel_err(torch, dk1, dp)
+        parts = [rel_err(torch, dk1[..., i * E:(i + 1) * E], dp[..., i * E:(i + 1) * E])[1]
+                 for i in range(3)]
+        print(f"mha_qkv_bwd {label} {tuple(qkv.shape)} heads {heads}: max|d| {d:.6g}; dq, dk, dv "
+              f"each against its own max|ref| {', '.join(f'{p:.3g}' for p in parts)} (bound "
+              f"{BF16_REL_TOL:.3g}); two runs bit-equal", flush=True)
+        if not max(parts) <= BF16_REL_TOL:
+            fail(f"mha_qkv_bwd {label} disagrees with its plain version")
+        del dk2, dp
+        res = dict(
+            shape=f"{tuple(qkv.shape)}, {heads} heads", max_abs_err=d,
+            ms=cuda_ms(torch, lambda: attention_kernel.mha_qkv_bwd(qkv, g, heads), iters),
+            plain_ms=cuda_ms(torch, lambda: attention_kernel.reference_mha_qkv_bwd(qkv, g, heads),
+                             plain_iters),
+            # five S*S*D products per (batch, head): logits, dP, dV, dQ, dK
+            **bound(10.0 * B * S * S * E, nbytes(qkv, g, dk1)))
+    q, k, v = (t.clone().requires_grad_() for t in heads_of(qkv, heads))
+    out = torch.nn.functional.scaled_dot_product_attention(q, k, v)
+    go = g.reshape(B, S, heads, -1).transpose(1, 2).contiguous()
+    res["library_ms"] = cuda_ms(
+        torch, lambda: torch.autograd.grad(out, (q, k, v), go, retain_graph=True), iters)
+    res["flops"] = 10.0 * B * S * S * E
+    del q, k, v, out, go, dk1
+    torch.cuda.empty_cache()
+    return res
+
+
+def heads_of(t, h):
+    """q, k, v (B, H, S, D) of a packed (B, S, 3E) qkv, for SDPA."""
+    b, n, e3 = t.shape
+    return [u.contiguous() for u in t.reshape(b, n, 3, h, e3 // 3 // h).permute(2, 0, 3, 1, 4)]
 
 
 def pix4point_stages(torch, model, pts) -> dict:
@@ -979,6 +1124,11 @@ def main() -> None:
     train_counts = train_phase(torch, dev, _build)["counts"]
     print(f"training phase: {time.perf_counter() - t_train:.1f} s", flush=True)
 
+    # -- training above the JAX Pallas gate: one slim2 step at npoint 1536 ---
+    t_train = time.perf_counter()
+    train_long_counts = train_long_phase(torch, dev, _build)["counts"]
+    print(f"npoint {LONGER_NPOINT} training phase: {time.perf_counter() - t_train:.1f} s", flush=True)
+
     # -- the third path: Pix4Point (vit_small) serving at full width ---------
     t_p4p = time.perf_counter()
     p4p = pix4point_phase(torch, dev, _build)
@@ -1090,29 +1240,6 @@ def main() -> None:
             plain_ms=cuda_ms(torch, lambda: attention_kernel.reference_mha_qkv(qkv, heads), 3),
             **bound(4.0 * B * G * G * E, nbytes(qkv, ak)))
 
-        g = torch.randn(ak.shape, generator=torch.Generator().manual_seed(SEED + 2))
-        g = g.to(dev, torch.bfloat16)
-        dk1 = attention_kernel.mha_qkv_bwd(qkv, g, heads)
-        dk2 = attention_kernel.mha_qkv_bwd(qkv, g, heads)
-        dp = attention_kernel.reference_mha_qkv_bwd(qkv, g, heads)
-        torch.cuda.synchronize()
-        if not torch.equal(dk1, dk2):
-            fail("mha_qkv_bwd: two runs on the same inputs are not bit-equal")
-        d, r = rel_err(torch, dk1, dp)
-        parts = [rel_err(torch, dk1[..., i * E:(i + 1) * E], dp[..., i * E:(i + 1) * E])[1]
-                 for i in range(3)]
-        print(f"mha_qkv_bwd {tuple(qkv.shape)}: max|d| {d:.6g}, relative to max|ref| {r:.3g}; "
-              f"dq, dk, dv each against its own max|ref| {', '.join(f'{p:.3g}' for p in parts)} "
-              f"(bound {BF16_REL_TOL:.3g}); two runs bit-equal", flush=True)
-        if not max([r] + parts) <= BF16_REL_TOL:
-            fail("mha_qkv_bwd disagrees with its plain version")
-        results["mha_qkv_bwd"] = dict(
-            shape=f"{tuple(qkv.shape)}, {heads} heads", max_abs_err=d,
-            ms=cuda_ms(torch, lambda: attention_kernel.mha_qkv_bwd(qkv, g, heads), 10),
-            plain_ms=cuda_ms(torch, lambda: attention_kernel.reference_mha_qkv_bwd(qkv, g, heads), 3),
-            # five S*S*D products per (batch, head): logits, dP, dV, dQ, dK
-            **bound(10.0 * B * G * G * E, nbytes(qkv, g, dk1)))
-
         # Pix4Point: the P3 stage and block 0 on the data the model makes.
         vit = p4p["model"].model
         pe = vit.patch_embed
@@ -1219,6 +1346,8 @@ def main() -> None:
             quant_shapes[name] = dict(
                 shape=f"({Mq}, {Kq}) -> {Nq}", max_abs_err=0.0,
                 ms=cuda_ms(torch, lambda: quant_kernel.quant_dense(xl, wq, sw, qb), 10),
+                quantizer_ms=cuda_ms(torch, lambda: quant_kernel.launch_quantize_rows(xl), 10),
+                ops=2.0 * Mq * Nq * Kq,
                 plain_ms=cuda_ms(torch, lambda: quant_kernel.reference_quant_dense(xl, wq, sw, qb), 2),
                 **bound(2.0 * Mq * Nq * Kq, nbytes(xl, wq, sw, qk) + (nbytes(qb) if qb is not None else 0),
                         PEAK_INT8),
@@ -1227,16 +1356,12 @@ def main() -> None:
             print(f"quant_dense {name} {quant_shapes[name]['shape']}: bit-equal to its plain version",
                   flush=True)
             del xl, qk, xq
-        results["quant_dense"] = dict(quant_shapes[QUANT_LINE_LAYER])
-        del results["quant_dense"]["gemm_ms"]
+        results["quant_dense"] = {k: v for k, v in quant_shapes[QUANT_LINE_LAYER].items()
+                                  if k not in ("gemm_ms", "quantizer_ms", "ops")}
     torch.cuda.synchronize()
 
     # One PyTorch call computing the same function, timed only (the port
     # never calls it): SDPA on the heads split out of the packed qkv.
-    def heads_of(t, h):
-        b, n, e3 = t.shape
-        return [u.contiguous() for u in t.reshape(b, n, 3, h, e3 // 3 // h).permute(2, 0, 3, 1, 4)]
-
     sdpa = torch.nn.functional.scaled_dot_product_attention
     q, k, v = heads_of(qkv, heads)
     results["mha_qkv"]["library_ms"] = cuda_ms(torch, lambda: sdpa(q, k, v), 10)
@@ -1244,14 +1369,16 @@ def main() -> None:
     att513["library_ms"] = cuda_ms(torch, lambda: sdpa(q5, k5, v5), 10)
     q197, k197, v197 = heads_of(qkv197, rh)
     att197["library_ms"] = cuda_ms(torch, lambda: sdpa(q197, k197, v197), 5)
-    del q197, k197, v197
-    q, k, v = (t.clone().requires_grad_() for t in (q, k, v))
-    out = sdpa(q, k, v)
-    go = g.clone().reshape(B, G, heads, -1).transpose(1, 2).contiguous()
-    results["mha_qkv_bwd"]["library_ms"] = cuda_ms(
-        torch, lambda: torch.autograd.grad(out, (q, k, v), go, retain_graph=True), 10)
-    del q, k, v, out, go
+    del q197, k197, v197, q, k, v
     torch.cuda.synchronize()
+
+    # -- the attention backward at the three served models' attention shapes
+    t_bwd = time.perf_counter()
+    bwd = {"APF": attention_bwd_phase(torch, "APF", qkv, heads, SEED + 2, iters=10, plain_iters=3),
+           "S=197": attention_bwd_phase(torch, "S=197", qkv197, rh, SEED + 11),
+           "S=513": attention_bwd_phase(torch, "S=513", qkv5, vh, SEED + 12)}
+    results["mha_qkv_bwd"] = {k: v for k, v in bwd["APF"].items() if k != "flops"}
+    print(f"attention backward phase: {time.perf_counter() - t_bwd:.1f} s", flush=True)
 
     # -- the sixth path: fused_attention_block forward and backward at the
     #    attention sublayers of the three served models ---------------------
@@ -1280,36 +1407,10 @@ def main() -> None:
             max_abs_err=d, ms=cuda_ms(torch, lambda: attention_kernel.mha_qkv(qkv_l, heads), 5),
             plain_ms=cuda_ms(torch, lambda: attention_kernel.reference_mha_qkv(qkv_l, heads), 2),
             **bound(4.0 * Bl * Sl * Sl * E, nbytes(qkv_l, a_l)))
-        g_l = torch.randn(a_l.shape, generator=torch.Generator().manual_seed(SEED + 6))
-        g_l = g_l.to(dev, torch.bfloat16)
-        dk1 = attention_kernel.mha_qkv_bwd(qkv_l, g_l, heads)
-        dk2 = attention_kernel.mha_qkv_bwd(qkv_l, g_l, heads)
-        dp = attention_kernel.reference_mha_qkv_bwd(qkv_l, g_l, heads)
-        torch.cuda.synchronize()
-        if not torch.equal(dk1, dk2):
-            fail("mha_qkv_bwd S=1024: two runs on the same inputs are not bit-equal")
-        d, r = rel_err(torch, dk1, dp)
-        parts = [rel_err(torch, dk1[..., i * E:(i + 1) * E], dp[..., i * E:(i + 1) * E])[1]
-                 for i in range(3)]
-        print(f"mha_qkv_bwd S=1024 {tuple(qkv_l.shape)}: max|d| {d:.6g}, relative to max|ref| "
-              f"{r:.3g}; dq, dk, dv each against its own max|ref| "
-              f"{', '.join(f'{p:.3g}' for p in parts)} (bound {BF16_REL_TOL:.3g}); two runs bit-equal",
-              flush=True)
-        if not max([r] + parts) <= BF16_REL_TOL:
-            fail("mha_qkv_bwd S=1024 disagrees with its plain version")
-        del dk2, dp
-        att_long_bwd = dict(
-            max_abs_err=d, ms=cuda_ms(torch, lambda: attention_kernel.mha_qkv_bwd(qkv_l, g_l, heads), 5),
-            plain_ms=cuda_ms(torch, lambda: attention_kernel.reference_mha_qkv_bwd(qkv_l, g_l, heads), 2),
-            **bound(10.0 * Bl * Sl * Sl * E, nbytes(qkv_l, g_l, dk1)))
-    q, k, v = (t.clone().requires_grad_() for t in heads_of(qkv_l, heads))
-    with torch.no_grad():
+        q, k, v = heads_of(qkv_l, heads)
         att_long["library_ms"] = cuda_ms(torch, lambda: sdpa(q, k, v), 5)
-    out = sdpa(q, k, v)
-    go = g_l.clone().reshape(Bl, Sl, heads, -1).transpose(1, 2).contiguous()
-    att_long_bwd["library_ms"] = cuda_ms(
-        torch, lambda: torch.autograd.grad(out, (q, k, v), go, retain_graph=True), 5)
-    del q, k, v, out, go
+        del q, k, v
+    bwd["S=1024"] = attention_bwd_phase(torch, "S=1024", qkv_l, heads, SEED + 6, plain_iters=2)
     print(f"S=1024 phase: {time.perf_counter() - t_long:.1f} s", flush=True)
     torch.cuda.synchronize()
 
@@ -1332,6 +1433,7 @@ def main() -> None:
         q, k, v = heads_of(qkv_x, heads)
         att_longer["library_ms"] = cuda_ms(torch, lambda: sdpa(q, k, v), 5)
         del q, k, v, a_x
+    bwd[f"S={Sx}"] = attention_bwd_phase(torch, f"S={Sx}", qkv_x, heads, SEED + 9)
     print(f"S={Sx} phase: {time.perf_counter() - t_longer:.1f} s", flush=True)
     torch.cuda.synchronize()
 
@@ -1339,7 +1441,8 @@ def main() -> None:
         lib = "none" if r.get("library_ms") is None else f"{r['library_ms']:.4f} ms"
         line = (f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
                 f"ms ({r['bound_by']}), library call {lib}")
-        if flops is not None:  # useful FLOPs: 4 B S^2 E of attention (+ 8 B S E^2 of projection)
+        if flops is not None:  # useful FLOPs: 4 B S^2 E of attention (+ 8 B S E^2 of projection;
+            # 10 B S^2 E for the attention backward)
             line += (f"; {flops / r['ms'] / 1e9:.1f} TFLOP/s, "
                      f"{r['ms'] / r['library_ms']:.2f}x the library call")
         return line
@@ -1349,6 +1452,8 @@ def main() -> None:
     for name, res in apf_shapes.items():
         print(f"time {name} at the APF shape {res['shape']}: {fmt(res)}", flush=True)
     for name, res in results.items():
+        if name == "mha_qkv_bwd":
+            continue  # printed below with the other backward shapes
         flops = {"mha_qkv": attn_flops(qkv), "attn_block": 8.0 * B * G * E * E + 4.0 * B * G * G * E}
         print(f"time {name} at {res['shape']}: {fmt(res, flops.get(name))}", flush=True)
     print(f"time attention S=513 {tuple(qkv5.shape)} heads {vh}: {fmt(att513, attn_flops(qkv5))}",
@@ -1359,18 +1464,19 @@ def main() -> None:
           f"{fmt(att_long, attn_flops(qkv_l))}", flush=True)
     print(f"time attention S={Sx} {tuple(qkv_x.shape)} heads {heads}: "
           f"{fmt(att_longer, attn_flops(qkv_x))}", flush=True)
-    print(f"time attention backward S=1024 {tuple(qkv_l.shape)} heads {heads}: {fmt(att_long_bwd)}",
-          flush=True)
+    for label, res in bwd.items():
+        print(f"time attention backward {label} {res['shape']}: {fmt(res, res['flops'])}", flush=True)
     for label, res in ab.items():
         print(f"time attn_block {label} {res['shape']}: {fmt(res, res['flops'])}; forward + "
               f"backward: kernel path {res['train_ms']:.4f} ms, plain path "
               f"{res['train_plain_ms']:.4f} ms", flush=True)
     for name, res in quant_shapes.items():
         print(f"time quant_dense {name} {res['shape']}: {fmt(res)} (the int8 product alone, "
-              f"torch._int_mm); the bf16 GEMM kernel at this shape {res['gemm_ms']:.4f} ms",
-              flush=True)
-    paths = (counts, train_counts, p4p["counts"], rend["counts"], quant["counts"], ab_counts,
-             long["counts"], longer["counts"])
+              f"torch._int_mm); {res['ops'] / res['ms'] / 1e9:.1f} TOP/s; its row quantizer alone "
+              f"{res['quantizer_ms']:.4f} ms; the bf16 GEMM kernel at this shape "
+              f"{res['gemm_ms']:.4f} ms", flush=True)
+    paths = (counts, train_counts, train_long_counts, p4p["counts"], rend["counts"], quant["counts"],
+             ab_counts, long["counts"], longer["counts"])
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(c.get(name, 0) for c in paths), **results[name]}

@@ -119,19 +119,19 @@ def _build_all() -> dict[str, ctypes.CDLL]:
 
 
 def ptxas_report() -> str:
-    """Compile every source once more with ``-Xptxas -v`` (into
-    ``build/pointvit_tpu_torch/ptxas``) and return, per kernel, the
+    """Compile every source once more with ``-Xptxas -v``, all in parallel,
+    into ``build/pointvit_tpu_torch/ptxas``, and return, per kernel, the
     registers and spill bytes ptxas reports and the codes of its
     performance notes (C75xx: wgmma serialised or fences injected)."""
     nvcc = _nvcc()
     out_dir = BUILD_ROOT / "ptxas"
     out_dir.mkdir(parents=True, exist_ok=True)
+    procs = [(src, subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC), "-o", str(out_dir / f"lib{src.stem}.so"),
+         str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)) for src in _sources()]
     lines = []
-    for src in _sources():
-        cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC),
-               "-o", str(out_dir / f"lib{src.stem}.so"), str(src)]
-        done = subprocess.run(cmd, capture_output=True, text=True)
-        log = done.stdout + done.stderr
+    for src, proc in procs:
+        log, _ = proc.communicate()
         notes = sorted(set(re.findall(r"\((C75\d\d)\)", log)))
         for fn, body in re.findall(r"Function properties for (\S+)\n(.*?Used \d+ registers)", log, re.S):
             # the mangled name's length-prefixed part that ends in "kernel"

@@ -113,6 +113,8 @@ extern "C" int pv_attention(const void* qkv, void* out, int B, int S, int H, int
   if (head_dim != kAttnTile || S < 1 || B < 1 || H < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  cudaFuncSetAttribute(attention_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       kSmemBytes);  // first: binds the context the tensor map needs
   const uint64_t E3 = 3ull * H * head_dim;
   const uint64_t dims[3] = {E3, (uint64_t)S, (uint64_t)B};
   const uint64_t strides[2] = {E3 * 2, E3 * 2 * S};
@@ -120,8 +122,6 @@ extern "C" int pv_attention(const void* qkv, void* out, int B, int S, int H, int
   if (!pv_tensor_map(&map, qkv, 3, dims, strides, kAttnTile)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaFuncSetAttribute(attention_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       kSmemBytes);
   const dim3 grid((S + kAttnTile - 1) / kAttnTile, H, B);
   attention_fwd_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       map, static_cast<bf16*>(out), S, H, scale);

@@ -215,6 +215,10 @@ extern "C" int pv_attn_block(const void* x, const void* w, const void* bias, voi
   if (head_dim != kAttnTile || S < 1 || S > kMaxSeq || B < 1 || H < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int tiles = (S + kAttnTile - 1) / kAttnTile, stages = ring_stages(tiles);
+  const int smem = smem_bytes(tiles, stages);
+  // first: binds the context the tensor maps need
+  cudaFuncSetAttribute(attn_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   const uint64_t E = (uint64_t)H * head_dim;
   const uint64_t xdims[3] = {E, (uint64_t)S, (uint64_t)B}, xstrides[2] = {E * 2, E * 2 * S};
   const uint64_t wdims[2] = {E, 3 * E}, wstrides[1] = {E * 2};
@@ -223,9 +227,6 @@ extern "C" int pv_attn_block(const void* x, const void* w, const void* bias, voi
       !pv_tensor_map(&wmap, w, 2, wdims, wstrides, kAttnTile)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int tiles = (S + kAttnTile - 1) / kAttnTile, stages = ring_stages(tiles);
-  const int smem = smem_bytes(tiles, stages);
-  cudaFuncSetAttribute(attn_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   attn_block_kernel<<<dim3(H, B), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       xmap, wmap, static_cast<const bf16*>(bias), static_cast<bf16*>(o), S, H, stages, scale);
   return static_cast<int>(cudaGetLastError());

@@ -1,6 +1,6 @@
 // Helpers shared by the port's CUDA sources: bf16 conversions, cp.async,
-// ldmatrix, the bf16 tensor-core MMA (mma.sync m16n8k16, f32 accumulate),
-// and the staging of head-wide tiles that the attention kernels stream.
+// ldmatrix and the bf16 tensor-core MMA (mma.sync m16n8k16, f32
+// accumulate).
 //
 // Every source compiles into its own shared library with a plain C
 // interface (pointvit_tpu_torch/_build.py). Each entry point launches on the
@@ -44,12 +44,6 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
 }
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
 // d += a(16x16, row) * b(16x8, col), bf16 inputs, f32 accumulators.
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
@@ -65,37 +59,4 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Stage rows [r0, r0 + rows) of D bf16 columns of a matrix with row stride
-// `stride` into shared-memory rows of D + 8 with cp.async, zeros for rows at
-// or past S; kThreads threads share the copies. The caller commits.
-template <int D, int kThreads>
-__device__ __forceinline__ void stage_rows_async(bf16* dst, const bf16* src, int r0, int rows,
-                                                 int S, int stride) {
-  constexpr int KS = D + 8, CH = D / 8;
-  for (int c = threadIdx.x; c < rows * CH; c += kThreads) {
-    const int r = c / CH, cc = (c % CH) * 8;
-    const bool ok = r0 + r < S;
-    cp_async16(&dst[r * KS + cc], ok ? src + (size_t)(r0 + r) * stride + cc : src, ok);
-  }
-}
-
-// Run body(stage, t) on tiles t = 0 .. tiles-1 held in two shared-memory
-// stages: load(stage, t) issues and commits tile t's copies, and the next
-// tile loads while body runs on this one. Every thread of the block calls it.
-template <typename Load, typename Body>
-__device__ __forceinline__ void pipeline(int tiles, Load&& load, Body&& body) {
-  load(0, 0);
-  for (int t = 0; t < tiles; ++t) {
-    if (t + 1 < tiles) {
-      load((t + 1) & 1, t + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    body(t & 1, t);
-    __syncthreads();
-  }
 }

@@ -1,6 +1,7 @@
-// Hopper (sm_90a) primitives for the attention kernels: mbarriers, TMA tile
-// loads through a tensor map, warpgroup MMA (wgmma) with shared-memory
-// descriptors, and the host-side encoding of a tensor map.
+// Hopper (sm_90a) primitives for the attention and int8 kernels: mbarriers,
+// TMA tile loads through a tensor map and plain bulk copies, warpgroup MMA
+// (wgmma) with shared-memory descriptors, and the host-side encoding of a
+// tensor map.
 //
 // Layout convention. Every tile these kernels hand to wgmma is 64 bf16
 // values (128 bytes) wide and a multiple of 8 rows deep, written by TMA with
@@ -69,6 +70,16 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// A plain bulk copy of `bytes` (a multiple of 16, from a 16-byte aligned
+// address) into shared memory, announced to `bar` like a tile.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 
@@ -188,19 +199,32 @@ static PvEncodeTiled pv_encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor of `rank` (2 or 3) dimensions, innermost first: dims[i]
+// A tensor of `rank` (2 or 3) dimensions, innermost first: dims[i]
 // elements, strides[i] bytes between steps of dimension i + 1; boxes of
-// 64 x box_rows (x 1) elements, 128-byte swizzled, zeros outside the tensor.
-// Returns false if the driver refused it.
-static bool pv_tensor_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
-                          const uint64_t* strides, uint32_t box_rows) {
+// box_inner x box_rows (x 1) elements, 128-byte swizzled (box_inner times
+// the element size is at most 128 bytes), zeros outside the tensor.
+// Returns false if the driver refused it. The driver encodes against the
+// calling thread's current context, which a runtime call binds (an autograd
+// thread may not have made one yet): callers make theirs, such as
+// cudaFuncSetAttribute, first.
+static bool pv_tensor_map_of(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                             int rank, const uint64_t* dims, const uint64_t* strides,
+                             uint32_t box_inner, uint32_t box_rows) {
   PvEncodeTiled encode = pv_encode_tiled();
   if (!encode) return false;
-  const cuuint32_t box[3] = {64, box_rows, 1}, ones[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+  const cuuint32_t box[3] = {box_inner, box_rows, 1}, ones[3] = {1, 1, 1};
+  return encode(map, type, rank, const_cast<void*>(base),
                 reinterpret_cast<const cuuint64_t*>(dims),
                 reinterpret_cast<const cuuint64_t*>(strides), box, ones,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A bf16 tensor in boxes of 64 x box_rows (x 1) elements: the tiles of the
+// layout convention above.
+static bool pv_tensor_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+                          const uint64_t* strides, uint32_t box_rows) {
+  return pv_tensor_map_of(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides, 64,
+                          box_rows);
 }

@@ -22,10 +22,10 @@ which accumulate in f32; g cast to qkv.dtype first (``:427``). Kernel and
 plain version therefore differ only in summation order.
 
 A CPU tensor takes the plain versions in both directions; a CUDA tensor
-launches the kernels (bf16, head dim 64; S: any for the attention forward,
-up to 1024 for its backward, up to 736 for the fused sublayer's first
-launch) and raises on anything else. ``implementation='torch'`` takes the
-plain versions on any device.
+launches the kernels (bf16, head dim 64; S: any for the attention and its
+backward, up to 736 for the fused sublayer's first launch) and raises on
+anything else. ``implementation='torch'`` takes the plain versions on any
+device.
 """
 
 from __future__ import annotations
@@ -97,7 +97,7 @@ def mha_qkv(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 
 def mha_qkv_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Tensor:
     """Attention backward: ``csrc/attention_bwd.cu`` on CUDA tensors (bf16,
-    head dim 64, S ≤ 1024), the plain version on CPU tensors."""
+    head dim 64, any S), the plain version on CPU tensors."""
     B, S, E, D = split_heads(qkv, num_heads)
     if tuple(g.shape) != (B, S, E):
         raise ValueError(f"g must be {(B, S, E)}, got {tuple(g.shape)}")
@@ -106,14 +106,11 @@ def mha_qkv_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Ten
     require(qkv, "qkv", torch.bfloat16, 3)
     g = g.to(torch.bfloat16).contiguous()
     require(g, "g", torch.bfloat16, 3, qkv.device)
-    limit = kernel("attention_bwd", "pv_attention_bwd_max_seq", [INT])(D)
-    if limit == 0 or S > limit:
-        raise ValueError(
-            f"the attention backward kernel takes head_dim 64 and S ≤ {limit or 'n/a'}; "
-            f"got head_dim {D}, S {S}"
-        )
+    if D != 64:
+        raise ValueError(f"the attention backward kernel takes head_dim 64; got head_dim {D}, S {S}")
     dqkv = torch.empty_like(qkv)
-    stats = torch.empty((3, B, num_heads, S), dtype=torch.float32, device=qkv.device)
+    # (row max · c, 1 / row sum, delta) of every query row, rows padded to 64
+    stats = torch.empty((3, B, num_heads, -(-S // 64) * 64), dtype=torch.float32, device=qkv.device)
     fn = kernel("attention_bwd", "pv_attention_bwd",
                 [PTR, PTR, PTR, PTR, INT, INT, INT, INT, FLOAT, PTR])
     err = fn(qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), stats.data_ptr(), B, S, num_heads, D,
@@ -306,9 +303,8 @@ def _attn_block_bwd(x, wqkv, bqkv, wproj, o, g, num_heads: int, plain: bool):
     (the VJP of ``_reference_attn_block``, ``:551-555``) computes them:
     torch.matmul for every product, the attention's VJP by
     :func:`mha_qkv_bwd` (the B6 kernel on the card) or, when ``plain``, its
-    plain version. The forward's limit (S ≤ 736) lies below the backward
-    kernel's (S ≤ 1024), so on the card every shape the forward took runs
-    the kernel here."""
+    plain version. The backward kernel takes any S, so on the card every
+    shape the forward took runs the kernel here."""
     B, S, E = x.shape
     dt = x.dtype
     ct = torch.promote_types(dt, torch.float32)

@@ -29,12 +29,13 @@ import torch.nn.functional as F
 
 from pointvit_tpu_torch._build import INT, PTR, LaunchCounter, check, kernel, require, stream_ptr
 
-__all__ = ["quantize_weight", "quant_dense", "reference_quant_dense", "quantize_rows", "launches"]
+__all__ = ["quantize_weight", "quant_dense", "reference_quant_dense", "quantize_rows",
+           "launch_quantize_rows", "launches"]
 
 launches = LaunchCounter("quant_dense")
 
 _EPS = 1e-8
-_K_ALIGN = 16  # the GEMM's K step unit: one 16-byte cp.async chunk of an int8 row
+_K_ALIGN = 16  # bytes: the row stride a TMA tensor map takes is a multiple of 16
 _PLAIN_ROWS = 1 << 16  # rows per float64 product in the plain version
 
 
@@ -122,19 +123,32 @@ def quant_dense(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     if M == 0:
         return out.reshape(*lead, N)
-    Kp = -(-K // _K_ALIGN) * _K_ALIGN
+    xq, sx = launch_quantize_rows(x2)
+    Kp = xq.shape[1]
     if Kp != K:
         wq = F.pad(wq, (0, Kp - K))
-    xq = torch.empty((M, Kp), dtype=torch.int8, device=dev)
-    sx = torch.empty((M,), dtype=torch.float32, device=dev)
-    stream = stream_ptr(dev)
-    rows = kernel("quant", "pv_quantize_rows", [PTR, INT, PTR, PTR, INT, INT, INT, PTR])
-    check(rows(x2.data_ptr(), int(x.dtype == torch.float32), xq.data_ptr(), sx.data_ptr(), M, K,
-               Kp, stream), "quant", "pv_quantize_rows")
     gemm = kernel("quant", "pv_quant_gemm",
                   [PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, PTR])
     check(gemm(xq.data_ptr(), wq.data_ptr(), sx.data_ptr(), sw.data_ptr(),
                bias.data_ptr() if bias is not None else None, out.data_ptr(),
-               int(out_dtype == torch.float32), M, N, Kp, stream), "quant", "pv_quant_gemm")
+               int(out_dtype == torch.float32), M, N, Kp, stream_ptr(dev)), "quant", "pv_quant_gemm")
     launches.add()
     return out.reshape(*lead, N)
+
+
+def launch_quantize_rows(x2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The first launch of :func:`quant_dense` alone, uncounted: x2 (M, K)
+    bf16 or f32 on the card → (xq (M, Kp) int8 with Kp = K rounded up to 16
+    and zero bytes past K, sx (M,) f32), as :func:`quantize_rows` gives
+    them."""
+    if x2.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"x must be bf16 or f32, got {x2.dtype}")
+    require(x2, "x", x2.dtype, 2)
+    M, K = x2.shape
+    Kp = -(-K // _K_ALIGN) * _K_ALIGN
+    xq = torch.empty((M, Kp), dtype=torch.int8, device=x2.device)
+    sx = torch.empty((M,), dtype=torch.float32, device=x2.device)
+    rows = kernel("quant", "pv_quantize_rows", [PTR, INT, PTR, PTR, INT, INT, INT, PTR])
+    check(rows(x2.data_ptr(), int(x2.dtype == torch.float32), xq.data_ptr(), sx.data_ptr(), M, K,
+               Kp, stream_ptr(x2.device)), "quant", "pv_quantize_rows")
+    return xq, sx

@@ -5,7 +5,9 @@ The JAX side runs ``_mha_qkv_pallas`` and ``_mha_qkv_bwd_pallas`` in
 interpret mode; the port's wrappers take their plain versions for CPU
 tensors. In f32 the two differ only in summation order (≤ 1e-5 of the
 largest output); in bf16 both round at the same points, so they agree to a
-few bf16 steps (≤ 2^-6 of the largest output).
+few bf16 steps (≤ 2^-6 of the largest output). Above the JAX package's
+Pallas gate its backward is ``jax.vjp`` of ``_reference_mha_qkv``, which the
+port's plain backward is held to there.
 """
 
 import jax
@@ -14,7 +16,12 @@ import numpy as np
 import pytest
 import torch
 
-from pointvit_tpu.ops.pallas_attention import _mha_qkv_bwd_pallas, _mha_qkv_pallas
+from pointvit_tpu.ops.pallas_attention import (
+    _bwd_pallas_ok,
+    _mha_qkv_bwd_pallas,
+    _mha_qkv_pallas,
+    _reference_mha_qkv,
+)
 from pointvit_tpu_torch import _build
 from pointvit_tpu_torch.ops import attention_kernel
 
@@ -47,6 +54,26 @@ def test_forward_matches_pallas_interpret(S):
     assert got.dtype == torch.float32
     _assert_rel(got, want, REL_TOL)
     torch.testing.assert_close(attention_kernel.mha_qkv(T(qkv), H), got, rtol=0, atol=0)
+
+
+def test_backward_above_the_pallas_gate_matches_the_recompute_vjp():
+    """S = 1040 at 12 heads of 64 is past ``_bwd_pallas_ok``, where JAX runs
+    the recompute VJP of ``_reference_mha_qkv`` (one head here: the plain
+    backward works head by head). f32, so the two differ in summation order
+    only: 1e-5 of the largest output."""
+    B, S, heads, Dh = 1, 1040, 1, 64
+    assert not _bwd_pallas_ok(S, 12, Dh)
+    rng = np.random.default_rng(1040)
+    qkv = (2.0 * rng.standard_normal((B, S, 3 * heads * Dh))).astype(np.float32)
+    g = rng.standard_normal((B, S, heads * Dh)).astype(np.float32)
+    with jax.default_matmul_precision("highest"):
+        _, vjp = jax.vjp(lambda t: _reference_mha_qkv(t, heads), jnp.asarray(qkv))
+        (want,) = vjp(jnp.asarray(g))
+    got = attention_kernel.mha_qkv_bwd(T(qkv), T(g), heads)
+    assert got.dtype == torch.float32
+    E = heads * Dh
+    for i in range(3):  # dq, dk, dv each against its own scale
+        _assert_rel(got[..., i * E:(i + 1) * E], np.asarray(want)[..., i * E:(i + 1) * E], REL_TOL)
 
 
 @pytest.mark.parametrize("S", [16, 20])
