@@ -94,6 +94,15 @@
    bf16 cotangent: dq, dk and dv each within 2^-6 of its own max|ref| of
    the plain version, two runs bit-equal, timed beside its bound and SDPA's
    backward (timed only) with its achieved TFLOP/s.
+12. The bf16 GEMM (``csrc/gemm.cu``) at each distinct product of the
+   served renderer's serial-adapter block 0 (qkv, proj with the f32 sum and
+   the bf16 pre output, the adapter's down and up, fc1, fc2: M = 302,592),
+   of the served APF block 0 (M = 50,176) and of the APF group encoder (M =
+   802,816 grouped points), on the inputs those chains gave it: bf16 outputs
+   within 2^-7 and f32 outputs within 2^-12 of max|ref| of the plain
+   version, two runs bit-equal, timed beside its bound, its TFLOP/s, the
+   plain version and ``torch.nn.functional.linear`` on the same bf16
+   operands (cuBLAS, without the epilogue; timed only).
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``. Any failure exits
@@ -226,6 +235,21 @@ QUANT_LAYERS = ("point_encoder.first_1", "point_encoder.first_2", "point_encoder
                 "point_encoder.second_1", "blocks.0.attention.qkv", "blocks.0.attention.proj",
                 "blocks.0.mlp.fc1", "blocks.0.mlp.fc2")
 QUANT_LINE_LAYER = "blocks.0.mlp.fc1"
+
+
+# The GEMM phase (csrc/gemm.cu at each distinct product of the serial and
+# APF block chains and the group encoder): kernel and plain version differ
+# only in f32 summation order, so a bf16 output (out, pre, gmax) moves by at
+# most one bf16 step (2^-7 of max|ref| bounds it) and an f32 output by a few
+# f32 ulps of the sums (2^-12 of max|ref|); two runs give the same bits.
+GEMM_BF16_REL_TOL, GEMM_F32_REL_TOL = 2.0**-7, 2.0**-12
+
+
+# The distinct products of each chain, in the order the chain first calls them.
+SERIAL_GEMMS = ("qkv", "proj", "dn", "up", "fc1", "fc2")
+APF_GEMMS = ("qkv", "proj", "fc1", "dn", "up", "fc2")
+ENCODER_GEMMS = ("first_0", "first_1", "first_2 (max per group)", "second_0_global",
+                 "second_0_local", "second_1 (max per group)")
 
 
 def fail(msg: str) -> None:
@@ -560,6 +584,98 @@ def attention_bwd_phase(torch, label, qkv, heads, seed, iters=5, plain_iters=1) 
     del q, k, v, out, go, dk1
     torch.cuda.empty_cache()
     return res
+
+
+def record_gemms(module, run) -> list:
+    """The GEMM calls that ``run`` makes through ``module.gemm``: the first
+    of each distinct product, as (a, w, bias, kwargs without pre_out,
+    whether pre_out was given)."""
+    calls, seen, real = [], set(), module.gemm
+
+    def rec(a, w, bias=None, **kw):
+        pre = kw.pop("pre_out", None)
+        res = kw.get("res")
+        key = (tuple(a.shape), tuple(w.shape), bias is None, pre is None,
+               None if res is None else res.dtype, *sorted((k, str(v)) for k, v in kw.items() if k != "res"))
+        if key not in seen:
+            seen.add(key)
+            calls.append((a, w, bias, dict(kw), pre is not None))
+        return real(a, w, bias, pre_out=pre, **kw)
+
+    module.gemm = rec
+    try:
+        run()
+    finally:
+        module.gemm = real
+    return calls
+
+
+def epilogue_of(kw: dict, has_pre: bool) -> str:
+    """A recorded GEMM call's epilogue in words."""
+    parts = [f"{kw['act']}"] if kw.get("act", "none") != "none" else []
+    res = kw.get("res")
+    if res is not None:
+        parts.append(f"{str(res.dtype)[6:]} residual"
+                     + (f" x{kw['res_scale']:g}" if kw.get("res_scale", 1.0) != 1.0 else "")
+                     + (f" per {kw['res_div']} rows" if kw.get("res_div", 1) > 1 else ""))
+    out = kw.get("out_dtype", "bfloat16")
+    parts.append("no out" if out is None else f"{str(out).replace('torch.', '')} out")
+    if has_pre:
+        parts.append("bf16 pre")
+    if kw.get("group"):
+        parts.append(f"max per {kw['group']} rows")
+    return ", ".join(parts)
+
+
+def gemm_phase(torch, label, names, calls) -> list:
+    """Each recorded product on its recorded inputs: the kernel against its
+    plain version (bf16 outputs within GEMM_BF16_REL_TOL, f32 within
+    GEMM_F32_REL_TOL of max|ref|; two runs bit-equal), timed beside its bound,
+    the plain version and ``F.linear`` on the same bf16 operands (cuBLAS,
+    timed only)."""
+    from pointvit_tpu_torch.ops.gemm_kernel import gemm, reference_gemm
+
+    if len(names) != len(calls):
+        fail(f"gemm {label}: {len(calls)} distinct products, expected {len(names)}")
+    rows = []
+    for name, (a, w, bias, kw, has_pre) in zip(names, calls):
+        M, K = a.shape
+        N = w.shape[0]
+        pre = [torch.empty(M, N, dtype=torch.bfloat16, device=a.device) if has_pre else None
+               for _ in range(3)]
+        got = gemm(a, w, bias, pre_out=pre[0], **kw)
+        again = gemm(a, w, bias, pre_out=pre[1], **kw)
+        want = reference_gemm(a, w, bias, pre_out=pre[2], **kw)
+        torch.cuda.synchronize()
+        errs = {}
+        for tag, g, g2, ref in (("out", got[0], again[0], want[0]), ("gmax", got[1], again[1], want[1]),
+                                ("pre", pre[0], pre[1], pre[2])):
+            if g is None:
+                continue
+            if not torch.equal(g, g2):
+                fail(f"gemm {label} {name}: two runs of {tag} differ")
+            tol = GEMM_F32_REL_TOL if g.dtype == torch.float32 else GEMM_BF16_REL_TOL
+            _, r = rel_err(torch, g, ref)
+            if not r <= tol:
+                fail(f"gemm {label} {name}: {tag} {r:.3g} of max|ref| from its plain version (bound {tol:.3g})")
+            errs[tag] = r
+        del again, want
+        flops = 2.0 * M * N * K
+        moved = nbytes(*(t for t in (a, w, bias, kw.get("res"), got[0], got[1], pre[0]) if t is not None))
+        ms = cuda_ms(torch, lambda: gemm(a, w, bias, pre_out=pre[0], **kw), 10)
+        row = dict(name=name, shape=f"({M}, {K}) -> {N}", ms=ms, tflops=flops / ms / 1e9,
+                   plain_ms=cuda_ms(torch, lambda: reference_gemm(a, w, bias, pre_out=pre[2], **kw), 2),
+                   library_ms=cuda_ms(torch, lambda: torch.nn.functional.linear(a, w, bias), 10),
+                   errs=errs, **bound(flops, moved))
+        epi = epilogue_of(kw, has_pre)
+        print(f"time gemm {label} {name} {row['shape']} [{epi}]: kernel {ms:.4f} ms, "
+              f"{row['tflops']:.1f} TFLOP/s, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+              f"plain {row['plain_ms']:.4f} ms, F.linear (cuBLAS) {row['library_ms']:.4f} ms; "
+              f"max|d| / max|ref| {', '.join(f'{k} {v:.3g}' for k, v in errs.items())}; "
+              f"repeats bit-equal", flush=True)
+        rows.append(row)
+        del got, pre
+    return rows
 
 
 def heads_of(t, h):
@@ -1308,6 +1424,21 @@ def main() -> None:
             **bound(2.0 * Br * Sr * mats + 4.0 * Br * Sr * Sr * Er, nbytes(x0, sk, *w_ser)),
             library_ms=None)
         del sk
+
+        # The GEMM at each distinct product of the serial and APF block
+        # chains and the group encoder, on the inputs block 0 (and the
+        # encoder) of the served models gave it.
+        t_gemm = time.perf_counter()
+        gemm_rows = {
+            "serial block": gemm_phase(torch, "serial block", SERIAL_GEMMS, record_gemms(
+                serial_block_kernel, lambda: serial_block_kernel.fused_serial_block(x0, w_ser, rh))),
+            "APF block": gemm_phase(torch, "APF block", APF_GEMMS, record_gemms(
+                block_kernel, lambda: block_kernel.fused_apf_block(tokens, w_blk, heads))),
+            "group encoder": gemm_phase(torch, "group encoder", ENCODER_GEMMS, record_gemms(
+                encoder_kernel, lambda: encoder_kernel.fused_group_encoder(x_enc, w_enc))),
+        }
+        torch.cuda.synchronize()
+        print(f"gemm phase: {time.perf_counter() - t_gemm:.1f} s", flush=True)
 
         # The S=197 attention inside that block, alone.
         ln_rend = layer_norm(x0, rblk.ln_1)

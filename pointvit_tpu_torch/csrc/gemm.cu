@@ -1,4 +1,4 @@
-// Tiled bf16 GEMM with f32 accumulation and a fused epilogue:
+// bf16 GEMM with f32 accumulation and a fused epilogue:
 //
 //   v   = A[M,K] . W[N,K]^T  (+ bias[n])
 //   pre[m, n]            = v                (bf16; optional: before the residual)
@@ -10,217 +10,560 @@
 // With pre, one launch yields both a branch's rounded value and the f32 sum
 // of that branch and the residual: the serial-adapter block needs bf16(y) as
 // its adapter's input and f32(x + y) as the residual that the adapter's
-// up-projection adds. Without pre, the arithmetic is the same as before.
+// up-projection adds.
 //
 // It is the product engine of these TPU kernels, each as a short chain of
 // launches of this one kernel:
-//   - pointvit_tpu/ops/pallas_encoder.py::_encoder_pallas (kernel _enc_kernel):
-//     the five folded mini-PointNet products. The group max over K rows gives
-//     g and the final (M*K, E) product is reduced to (M, E) in the epilogue,
-//     so it never reaches device memory; the per-group g.Wg'+c2 row enters
-//     the loc.Wl' epilogue as a residual indexed by m / K.
+//   - pointvit_tpu/ops/pallas_encoder.py::_encoder_pallas (kernel _enc_kernel)
+//     and ::_p3_pallas (kernel _p3_kernel): the folded mini-PointNet
+//     products. The group max over K rows gives g and the final (M*K, E)
+//     product is reduced to (M, E) in the epilogue, so it never reaches
+//     device memory; the per-group g.Wg'+c2 row enters the loc.Wl' epilogue
+//     as a residual indexed by m / K.
 //   - pointvit_tpu/ops/pallas_block.py::_apf_block_pallas (kernels
 //     _attn_half_kernel, _mlp_half_kernel): qkv, proj + residual, fc1 + GELU,
 //     adapter down + ReLU, up + 2*x1, fc2 + the rest of the sum.
+//   - pointvit_tpu/ops/pallas_block.py::_vit_block_pallas: qkv, proj + x,
+//     fc1 + GELU, fc2 + x1.
 //   - pointvit_tpu/ops/pallas_block.py::_serial_block_pallas (kernels
 //     _serial_attn_half_kernel, _serial_mlp_half_kernel): proj and fc2 each
 //     write bf16(y) and f32(x + y) through pre; the adapters' up-projections
 //     add that f32 residual, as the Pallas kernel's f32 sum (x + y) + a.
+//   - the output projection of pallas_attention.py::_attn_block_pallas.
 //
-// What bounds it on the H100: at the main-path shapes (M = 50176 tokens or
-// 802816 grouped points, K and N of 256..3072) the products are compute
-// bound: 2*M*N*K FLOPs against (M*K + N*K + M*N) * 2 bytes. The epilogue
-// adds bandwidth for the outputs it writes.
+// What bounds it on the H100 (989 TFLOP/s bf16, 3.35 TB/s; each input read
+// once, each output written once). The serial-adapter block, M = 1536 * 197
+// = 302,592 token rows: qkv 768->2304 1.08 ms and fc1, fc2 1.44 ms each are
+// bound by operations; proj (f32 sum + bf16 pre out) 0.69 ms, the adapters'
+// down-projections (N = 64) 0.15 ms and up-projections (f32 residual in)
+// 0.43 ms are bound by bytes: 5.8 ms a block. The APF block, M = 256 * 196
+// = 50,176: qkv 0.18, proj 0.07 (bytes), fc1 0.24, down 0.03 (bytes), up
+// 0.07 (bytes), fc2 0.24 ms: 0.82 ms. So both the tensor cores and the
+// epilogue's bytes have to run near their rates.
 //
-// Design: 128x128 output tiles, 32-deep K steps, 8 warps each owning a
-// 64x32 sub-tile of mma.sync m16n8k16 bf16 products, two shared-memory
-// stages filled by cp.async so the next tile loads during this one's
-// products. Shared-memory rows are padded to 40 bf16 (80 bytes) so the
-// ldmatrix row reads fall in distinct banks. K is zero-filled per 8-column
-// chunk, so any K % 8 == 0 works: the encoder's first layer (C = 6 channels)
-// arrives padded to 8 by the wrapper. The epilogue stages the f32 tile in
-// shared memory, which makes the group max a plain column loop. This is a
-// simple first kernel; Hopper's wgmma and TMA are for a later change.
+// Design (Hopper). A producer warp streams 64-deep K steps of A (128 rows)
+// and W (BN rows) by TMA (128-byte swizzle, zeros past M, N and K, so K = 8
+// is one mostly zero box) into a ring of full and empty mbarriers; two
+// consumer warpgroups of 64 rows each issue wgmma m64nBNk16 with both
+// operands K-major from shared memory (A is (M, K), W is (N, K): what the
+// bf16 instruction takes without its transpose bit), one wgmma group per K
+// step kept in flight while the next stage is awaited; every consumer
+// thread arrives on the stage's empty barrier. Tiles are ordered N fastest,
+// so a row block of A is read from device memory once and from L2 by the
+// other column tiles. The epilogue works on the accumulators in registers:
+// bias and residual read as pairs of the accumulator layout, the residual's
+// row m / res_div computed once per row (the producer warp prefetches the
+// tile's residual rows into L2 while the products run); the group max
+// reduced across a warp's 16 rows by shuffles (and across warps through
+// shared memory for groups above 16). Two instances:
+//   - 128 x 128 (128 x 64 for N <= 64): two blocks an SM (96 registers a
+//     thread, a three-stage ring of 96 KB), one tile a block, so one
+//     block's epilogue overlaps the other's main loop; outputs staged in
+//     the drained ring and copied out in coalesced 16-byte stores. wgmma
+//     reads each 64-row A slice and the whole W slice from shared memory,
+//     and TMA writes both: about 160 bytes a clock at the bf16 peak against
+//     the SM's 128, so this main loop tops out near 540 TFLOP/s.
+//   - 128 x 256 persistent: one block an SM walks tiles (168 registers, a
+//     three-stage ring of 144 KB); m64n256k16 reads a third less from
+//     shared memory per FLOP, and its main loop runs near 690 TFLOP/s. The
+//     producer fills the ring for the next tile while the consumers finish
+//     this one; outputs go through a 64 KB staging area of 128-byte
+//     swizzled boxes that TMA stores, so the consumers move on before the
+//     bytes leave. But one block an SM cannot overlap the epilogue's own
+//     work with wgmma, so it is taken only where the main loop outweighs
+//     the epilogue: no pre output, no GELU, and a residual only for
+//     K >= 2048 (N % 8 == 0 and K >= 256 besides).
+// No split-K and no atomics: two runs give the same bits.
 #include "common.cuh"
+#include "sm90.cuh"
 
-#include <math_constants.h>
+#include <algorithm>
 
 namespace {
 
-constexpr int BM = 128, BN = 128, BK = 32, SK = BK + 8, CS = BN + 4;
-constexpr int kThreads = 256;
-constexpr int kPipeBytes = 2 * (BM + BN) * SK * 2;
-constexpr int kEpiBytes = BM * CS * 4;
-constexpr int kSmemBytes = kPipeBytes > kEpiBytes ? kPipeBytes : kEpiBytes;
+constexpr int BM = 128, BK = 64;  // BK: one 128-byte swizzled row of bf16
+constexpr int kThreads = 288;     // warps 0-7: two consumer warpgroups of 64 rows; warp 8: the producer
+constexpr int kConsumers = 256;
+
+// The instances. BN = 64 and 128: two blocks an SM, one tile each, the
+// epilogue staged in the drained ring (padded rows). BN = 256: one
+// persistent block an SM walking tiles, the epilogue staged beside the ring
+// in four 16 KB swizzled boxes, so the producer fills the ring for the next
+// tile while the consumers finish this one.
+template <int BN>
+struct Tile {
+  static constexpr bool kPersistent = BN == 256;
+  static constexpr int kStages = BN == 64 ? 4 : 3;
+  static constexpr int kStageBytes = (BM + BN) * BK * 2;
+  static constexpr int kRingBytes = kStages * kStageBytes;
+  // The staging area, then the group max's per-warp rows.
+  static constexpr int kStageOff = kPersistent ? kRingBytes : 0;
+  static constexpr int kRedOff = kStageOff + (kPersistent ? 4 * 16384 : BM * (512 + 32));
+  static constexpr int kBarOff = kPersistent ? kRedOff + 8 * BN * 4 : kRingBytes;  // full, empty
+  static constexpr int kSmem = kBarOff + 16 * kStages;
+  static_assert(kPersistent || kRedOff + 8 * BN * 4 <= kRingBytes, "the staged tile fits the ring");
+  static_assert(kStageBytes % 1024 == 0, "every stage starts on a 1024-byte boundary");
+  static_assert((kPersistent ? 1 : 2) * (kSmem + 1024) <= 232448, "the blocks fit an SM");
+};
 
 struct GemmArgs {
-  const bf16* A;
-  const bf16* W;
   const bf16* bias;
   const void* res;
   void* out;
   bf16* pre;
   bf16* gmax;
-  int lda, ldw, ldr, ldo, ldp, ldg;
   int M, N, K;
   int res_div, res_f32, out_f32, group, act;
   float res_scale;
 };
 
-__device__ __forceinline__ float add_bias(const GemmArgs& p, float v, int gc) {
-  return p.bias ? v + bf2f(p.bias[gc]) : v;
+#define PV_WGMMA_D128                                                                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                      \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "             \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "             \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "             \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "             \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "             \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}"
+#define PV_F8(d, i)                                                                           \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64 x 256 f32, accumulator layout) += A (64 x 16, shared, K-major) . B
+// (16 x 256, shared, K-major: 256 rows of W, 8-row groups 1024 bytes apart).
+__device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " PV_WGMMA_D128
+      ", %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : PV_F8(d, 0), PV_F8(d, 8), PV_F8(d, 16), PV_F8(d, 24), PV_F8(d, 32), PV_F8(d, 40),
+        PV_F8(d, 48), PV_F8(d, 56), PV_F8(d, 64), PV_F8(d, 72), PV_F8(d, 80), PV_F8(d, 88),
+        PV_F8(d, 96), PV_F8(d, 104), PV_F8(d, 112), PV_F8(d, 120)
+      : "l"(a), "l"(b), "r"(1));
 }
 
-// The residual and the activation, after the bias.
-__device__ __forceinline__ float finish(const GemmArgs& p, float v, int gr, int gc) {
-  if (p.res) {
-    const size_t ri = (size_t)(gr / p.res_div) * p.ldr + gc;
-    const float r = p.res_f32 ? static_cast<const float*>(p.res)[ri]
-                              : bf2f(static_cast<const bf16*>(p.res)[ri]);
-    v += p.res_scale * r;
+// One k16 slice of the tile's product into the accumulators.
+template <int BN>
+__device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t a, uint64_t b) {
+  if constexpr (BN == 64) {
+    wgmma_ss(d, a, b, 1);
+  } else if constexpr (BN == 128) {
+    wgmma_ss_n128(d, a, b, 1);
+  } else {
+    wgmma_ss_n256(d, a, b);
   }
-  if (p.act == 1) {
-    v = fmaxf(v, 0.f);
-  } else if (p.act == 2) {
-    v = 0.5f * v * (1.f + erff(v * 0.7071067811865475f));
+}
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void load_pair(const bf16* p, size_t i, bool two, float& a, float& b) {
+  if (two) {
+    const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p + i);
+    a = __low2float(v);
+    b = __high2float(v);
+  } else {
+    a = bf2f(p[i]);
   }
-  return v;
+}
+__device__ __forceinline__ void load_pair(const float* p, size_t i, bool two, float& a, float& b) {
+  if (two) {
+    const float2 v = *reinterpret_cast<const float2*>(p + i);
+    a = v.x;
+    b = v.y;
+  } else {
+    a = p[i];
+  }
 }
 
-__device__ __forceinline__ float epilogue(const GemmArgs& p, float v, int gr, int gc) {
-  return finish(p, add_bias(p, v, gc), gr, gc);
-}
-
-__global__ __launch_bounds__(kThreads) void gemm_kernel(const GemmArgs p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);  // [2][BM][SK]
-  bf16* Ws = As + 2 * BM * SK;               // [2][BN][SK]
-  float* Cs = reinterpret_cast<float*>(smem);  // [BM][CS], after the main loop
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-
-  float acc[4][4][4];
+// The accumulator layout of wgmma m64nNk16: acc[4 j + 2 h + e] is row
+// 16 w + g + 8 h of the warpgroup's 64 and column 8 j + 2 t + e (warp w of
+// the warpgroup, lane 4 g + t). Writes the tile (values cast to T; BN <=
+// 128, so rows of at most 512 bytes) row-major into the staging area, rows
+// padded so a warp's eight rows hit distinct banks, then all 256 consumer
+// threads copy it out in 16-byte chunks along rows.
+template <typename T, int BN>
+__device__ __forceinline__ void store_tile(const float (&acc)[BN / 2], unsigned char* stage, T* dst,
+                                           int m0, int n0, int M, int N, int r0, int t) {
+  constexpr int kRow = BN * sizeof(T) + 16 * sizeof(T) / 2;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int h = 0; h < 2; ++h) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  auto load = [&](int stage, int kt) {
-    const int k0 = kt * BK;
-#pragma unroll
-    for (int c = tid; c < BM * (BK / 8); c += kThreads) {
-      const int r = c >> 2, kc = (c & 3) * 8;
-      const int gk = k0 + kc;
-      const int gm = m0 + r, gn = n0 + r;
-      const bool okA = gm < p.M && gk < p.K;
-      const bool okW = gn < p.N && gk < p.K;
-      cp_async16(&As[(stage * BM + r) * SK + kc], okA ? p.A + (size_t)gm * p.lda + gk : p.A, okA);
-      cp_async16(&Ws[(stage * BN + r) * SK + kc], okW ? p.W + (size_t)gn * p.ldw + gk : p.W, okW);
-    }
-    cp_async_commit();
-  };
-
-  const int KT = (p.K + BK - 1) / BK;
-  load(0, 0);
-  const int arow = (lane & 7) + ((lane >> 3) & 1) * 8, acol = (lane >> 4) * 8;
-  const int brow = (lane & 7) + (lane >> 4) * 8, bcol = ((lane >> 3) & 1) * 8;
-  for (int kt = 0; kt < KT; ++kt) {
-    const int st = kt & 1;
-    if (kt + 1 < KT) {
-      load(st ^ 1, kt + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t a[4][4], b[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ldmatrix_x4(a[mi], &As[(st * BM + wm + mi * 16 + arow) * SK + kk + acol]);
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        uint32_t r[4];
-        ldmatrix_x4(r, &Ws[(st * BN + wn + nj * 16 + brow) * SK + kk + bcol]);
-        b[2 * nj][0] = r[0];
-        b[2 * nj][1] = r[1];
-        b[2 * nj + 1][0] = r[2];
-        b[2 * nj + 1][1] = r[3];
+    for (int j = 0; j < BN / 8; ++j) {
+      unsigned char* p = stage + (r0 + 8 * h) * kRow + (8 * j + 2 * t) * sizeof(T);
+      const float a = acc[4 * j + 2 * h], b = acc[4 * j + 2 * h + 1];
+      if constexpr (sizeof(T) == 4) {
+        *reinterpret_cast<float2*>(p) = make_float2(a, b);
+      } else {
+        *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
       }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
     }
-    __syncthreads();
   }
-
-  // Stage the raw f32 tile in shared memory (the pipeline buffers are free).
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int r = wm + mi * 16 + (lane >> 2), c = wn + ni * 8 + (lane & 3) * 2;
-      Cs[r * CS + c] = acc[mi][ni][0];
-      Cs[r * CS + c + 1] = acc[mi][ni][1];
-      Cs[(r + 8) * CS + c] = acc[mi][ni][2];
-      Cs[(r + 8) * CS + c + 1] = acc[mi][ni][3];
+  consumers_sync();
+  constexpr int kPer = 16 / sizeof(T), kChunks = BN / kPer;
+  const bool vec = N % kPer == 0;
+  for (int i = threadIdx.x; i < BM * kChunks; i += kConsumers) {
+    const int r = i / kChunks, c = (i % kChunks) * kPer;
+    const int gr = m0 + r, gc = n0 + c;
+    if (gr >= M || gc >= N) continue;
+    const unsigned char* src = stage + r * kRow + c * sizeof(T);
+    T* d = dst + (size_t)gr * N + gc;
+    if (vec) {
+      *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int e = 0; e < kPer && gc + e < N; ++e) d[e] = reinterpret_cast<const T*>(src)[e];
     }
+  }
+  consumers_sync();  // the staging area is free again
+}
+
+// ---- the persistent instance's epilogue: swizzled boxes stored by TMA ----
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(src), "r"(c0), "r"(c1)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void bulk_wait_read() { asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory"); }
+__device__ __forceinline__ void bulk_wait_all() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+
+// Waits until the TMA stores issued from the staging area have read it.
+__device__ __forceinline__ void staging_free() {
+  if (threadIdx.x == 0) bulk_wait_read();
+  consumers_sync();
+}
+
+// Columns 8 J0 .. 8 (J0 + JN) of the tile (64 KB of T) into four 16 KB boxes
+// of 128 rows x 128 bytes, 128-byte swizzled (chunk c of row r at c ^ r % 8:
+// a warp's eight rows hit distinct banks), then stored by TMA.
+template <typename T, int BN, int J0, int JN>
+__device__ __forceinline__ void tma_store_cols(const float (&acc)[BN / 2], unsigned char* stage,
+                                               const CUtensorMap* map, int m0, int n0, int r0, int t) {
+  constexpr int kBoxCols = 128 / sizeof(T);  // 64 bf16 or 32 f32
+  staging_free();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+#pragma unroll
+    for (int j = 0; j < JN; ++j) {
+      const int c = 8 * j + 2 * t;  // column within this pass
+      const int off = (c % kBoxCols) * sizeof(T);
+      unsigned char* p = stage + (c / kBoxCols) * 16384 + r * 128 + (((off >> 4) ^ (r & 7)) << 4) + (off & 15);
+      const float a = acc[4 * (J0 + j) + 2 * h], b = acc[4 * (J0 + j) + 2 * h + 1];
+      if constexpr (sizeof(T) == 4) {
+        *reinterpret_cast<float2*>(p) = make_float2(a, b);
+      } else {
+        *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+      }
+    }
+  }
+  fence_async_smem();
+  consumers_sync();
+  if (threadIdx.x == 0) {
+    const uint32_t src = smem_addr(stage);
+#pragma unroll
+    for (int box = 0; box < JN * 8 / kBoxCols; ++box)
+      tma_store_2d(map, src + box * 16384, n0 + 8 * J0 + box * kBoxCols, m0);
+    bulk_commit();
+  }
+}
+
+template <typename T, int BN>
+__device__ __forceinline__ void tma_store_tile(const float (&acc)[BN / 2], unsigned char* stage,
+                                               const CUtensorMap* map, int m0, int n0, int r0, int t) {
+  constexpr int kPasses = BN * sizeof(T) / 512;  // 64 KB a pass
+  tma_store_cols<T, BN, 0, BN / 8 / kPasses>(acc, stage, map, m0, n0, r0, t);
+  if constexpr (kPasses == 2) tma_store_cols<T, BN, BN / 16, BN / 16>(acc, stage, map, m0, n0, r0, t);
+}
+
+// gmax[(m0 + row) / G, n] = max over the group's rows, G a power of two
+// that divides BM (and M: a group lies wholly inside or outside M). Within
+// a warp the 16 rows are lane bits 2-4 (g) and the two halves h; groups
+// above 16 rows meet across warps in shared memory (red: [8 warps][BN]).
+template <int BN>
+__device__ __forceinline__ void group_max(float (&acc)[BN / 2], float* red, const GemmArgs& p, int m0,
+                                          int n0, int r0, int g, int t) {
+  const int G = p.group;
+#pragma unroll
+  for (int o = 4; o <= 16; o <<= 1) {
+    if (o / 4 < G) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = fmaxf(acc[i], __shfl_xor_sync(0xffffffffu, acc[i], o));
+    }
+  }
+  const bool pairs = (p.N & 1) == 0;
+  auto write = [&](int gr, float a, float b, int c) {  // the pair at columns c, c + 1 of gr's group
+    bf16* row = p.gmax + (size_t)(gr / G) * p.N;
+    if (pairs) {
+      *reinterpret_cast<uint32_t*>(row + c) = pack_bf16(a, b);
+    } else {
+      row[c] = f2bf(a);
+      if (c + 1 < p.N) row[c + 1] = f2bf(b);
+    }
+  };
+  if (G <= 8) {  // each half holds whole groups; lanes at a group's first row write
+    if (g % G == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int gr = m0 + r0 + 8 * h;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int c = n0 + 8 * j + 2 * t;
+          if (gr < p.M && c < p.N) write(gr, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1], c);
+        }
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    acc[4 * j] = fmaxf(acc[4 * j], acc[4 * j + 2]);
+    acc[4 * j + 1] = fmaxf(acc[4 * j + 1], acc[4 * j + 3]);
+  }
+  const int warp = threadIdx.x >> 5;  // rows 16 warp .. 16 warp + 15 of the tile
+  if (G == 16) {
+    const int gr = m0 + 16 * warp;
+    if (g == 0 && gr < p.M) {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int c = n0 + 8 * j + 2 * t;
+        if (c < p.N) write(gr, acc[4 * j], acc[4 * j + 1], c);
+      }
+    }
+    return;
+  }
+  if (g == 0) {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      red[warp * BN + 8 * j + 2 * t] = acc[4 * j];
+      red[warp * BN + 8 * j + 2 * t + 1] = acc[4 * j + 1];
+    }
+  }
+  consumers_sync();
+  const int per = G / 16;  // warps per group
+  for (int i = threadIdx.x; i < (BM / G) * BN; i += kConsumers) {
+    const int gi = i / BN, c = i % BN;
+    const int gr = m0 + gi * G;
+    if (gr >= p.M || n0 + c >= p.N) continue;
+    float m = red[gi * per * BN + c];
+    for (int w = 1; w < per; ++w) m = fmaxf(m, red[(gi * per + w) * BN + c]);
+    p.gmax[(size_t)(gr / G) * p.N + n0 + c] = f2bf(m);
+  }
+  consumers_sync();  // red is free again
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(p), "r"(bytes) : "memory");
+}
+
+template <int BN>
+__global__ __launch_bounds__(kThreads, (Tile<BN>::kPersistent ? 1 : 2)) void gemm_kernel(
+    const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap wmap,
+    const __grid_constant__ CUtensorMap omap, const GemmArgs p) {
+  using T = Tile<BN>;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = smem_addr(smem);
+  if (base & 1023) __trap();  // the swizzled tiles need 1024-byte alignment
+  const uint32_t full = base + T::kBarOff, empty = full + 8 * T::kStages;
+  // Tiles in one linear order, N tiles fastest (a row block of A stays in
+  // L2), so M may exceed 65535 row tiles; block b takes tiles b, b + grid, ...
+  const int n_tiles = (p.N + BN - 1) / BN;
+  const int tiles = n_tiles * ((p.M + BM - 1) / BM);
+  const int KT = (p.K + BK - 1) / BK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < T::kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kConsumers);  // every consumer thread arrives
+    }
+    mbar_fence_init();
+  }
   __syncthreads();
 
-  if (p.out) {
-    for (int e = tid; e < BM * BN; e += kThreads) {
-      const int r = e / BN, c = e % BN, gr = m0 + r, gc = n0 + c;
-      if (gr >= p.M || gc >= p.N) continue;
-      float v = add_bias(p, Cs[r * CS + c], gc);
-      if (p.pre) p.pre[(size_t)gr * p.ldp + gc] = f2bf(v);
-      v = finish(p, v, gr, gc);
-      const size_t o = (size_t)gr * p.ldo + gc;
-      if (p.out_f32) {
-        static_cast<float*>(p.out)[o] = v;
-      } else {
-        static_cast<bf16*>(p.out)[o] = f2bf(v);
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);  // warp-uniform
+  if (role == 2) {  // the producer warp
+    const int lane = threadIdx.x & 31;
+    int it = 0;  // K steps issued, over all of this block's tiles
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int n0 = (tile % n_tiles) * BN, m0 = (tile / n_tiles) * BM;
+      if (p.res) {  // warm L2 with the tile's residual rows while the products run
+        const int es = p.res_f32 ? 4 : 2;
+        if ((p.N * es) % 16 == 0) {
+          const int r_lo = m0 / p.res_div, r_hi = (min(m0 + BM, p.M) - 1) / p.res_div;
+          const uint32_t bytes = min(BN, p.N - n0) * es;
+          for (int r = r_lo + lane; r <= r_hi; r += 32)
+            prefetch_l2(static_cast<const char*>(p.res) + ((size_t)r * p.N + n0) * es, bytes);
+        }
+      }
+      if (lane == 0) {
+        for (int kt = 0; kt < KT; ++kt, ++it) {
+          const int stage = it % T::kStages, round = it / T::kStages;
+          if (round > 0) mbar_wait(empty + 8 * stage, (round - 1) & 1);
+          const uint32_t slot = base + stage * T::kStageBytes, bar = full + 8 * stage;
+          mbar_expect_tx(bar, T::kStageBytes);
+          tma_load_2d(slot, &amap, bar, kt * BK, m0);
+          tma_load_2d(slot + BM * BK * 2, &wmap, bar, kt * BK, n0);
+        }
+      }
+      __syncwarp();
+      if constexpr (!T::kPersistent) break;
+    }
+    return;
+  }
+
+  unsigned char* stage_area = smem + T::kStageOff;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = role * 64 + (threadIdx.x >> 5 & 3) * 16 + g;  // tile row of half 0; half 1 is r0 + 8
+  const bool pairs = (p.N & 1) == 0;
+  int it = 0;  // K steps consumed, over all of this block's tiles
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int n0 = (tile % n_tiles) * BN, m0 = (tile / n_tiles) * BM;
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt < KT; ++kt, ++it) {
+      const int stage = it % T::kStages;
+      mbar_wait(full + 8 * stage, (it / T::kStages) & 1);
+      const uint32_t a = base + stage * T::kStageBytes + role * 64 * BK * 2;
+      const uint32_t b = base + stage * T::kStageBytes + BM * BK * 2;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) wgmma_tile<BN>(acc, desc_kmajor(a + 32 * kk), desc_kmajor(b + 32 * kk));
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous K step's group is done: hand its stage back
+      if (kt > 0) mbar_arrive(empty + 8 * ((it - 1) % T::kStages));
+    }
+    wgmma_wait<0>();
+    reg_fence(acc);
+    mbar_arrive(empty + 8 * ((it - 1) % T::kStages));  // the tile's last stage
+    if constexpr (!T::kPersistent) consumers_sync();  // both warpgroups are done with the ring
+
+    // The epilogue, on the accumulators in registers.
+    if (p.bias) {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int c = n0 + 8 * j + 2 * t;
+        float b0 = 0.f, b1 = 0.f;
+        if (c < p.N) load_pair(p.bias, c, pairs, b0, b1);
+        if (!pairs && c + 1 < p.N) b1 = bf2f(p.bias[c + 1]);
+        acc[4 * j] += b0;
+        acc[4 * j + 1] += b1;
+        acc[4 * j + 2] += b0;
+        acc[4 * j + 3] += b1;
       }
     }
+    if constexpr (!T::kPersistent) {  // pv_gemm gives the persistent instance no pre
+      if (p.pre) store_tile<bf16, BN>(acc, stage_area, p.pre, m0, n0, p.M, p.N, r0, t);
+    }
+    if (p.res) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int gr = m0 + r0 + 8 * h;
+        if (gr >= p.M) continue;
+        const size_t row = (size_t)(gr / p.res_div) * p.N;  // once per row
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int c = n0 + 8 * j + 2 * t;
+          if (c >= p.N) continue;
+          float r[2] = {0.f, 0.f};
+          if (p.res_f32) {
+            load_pair(static_cast<const float*>(p.res), row + c, pairs, r[0], r[1]);
+            if (!pairs && c + 1 < p.N) r[1] = static_cast<const float*>(p.res)[row + c + 1];
+          } else {
+            load_pair(static_cast<const bf16*>(p.res), row + c, pairs, r[0], r[1]);
+            if (!pairs && c + 1 < p.N) r[1] = bf2f(static_cast<const bf16*>(p.res)[row + c + 1]);
+          }
+          acc[4 * j + 2 * h] += p.res_scale * r[0];
+          acc[4 * j + 2 * h + 1] += p.res_scale * r[1];
+        }
+      }
+    }
+    if (p.act == 1) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = fmaxf(acc[i], 0.f);
+    } else if (p.act == 2) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.5f * acc[i] * (1.f + erff(acc[i] * 0.7071067811865475f));
+    }
+    if (p.out) {
+      if constexpr (T::kPersistent) {
+        if (p.out_f32) {
+          tma_store_tile<float, BN>(acc, stage_area, &omap, m0, n0, r0, t);
+        } else {
+          tma_store_tile<bf16, BN>(acc, stage_area, &omap, m0, n0, r0, t);
+        }
+      } else if (p.out_f32) {
+        store_tile<float, BN>(acc, stage_area, static_cast<float*>(p.out), m0, n0, p.M, p.N, r0, t);
+      } else {
+        store_tile<bf16, BN>(acc, stage_area, static_cast<bf16*>(p.out), m0, n0, p.M, p.N, r0, t);
+      }
+    }
+    if (p.gmax) group_max<BN>(acc, reinterpret_cast<float*>(smem + T::kRedOff), p, m0, n0, r0, g, t);
+    if constexpr (!T::kPersistent) break;  // one tile a block
   }
-  if (p.gmax) {
-    const int groups = BM / p.group;
-    for (int e = tid; e < groups * BN; e += kThreads) {
-      const int g = e / BN, c = e % BN, gr0 = m0 + g * p.group, gc = n0 + c;
-      if (gr0 >= p.M || gc >= p.N) continue;
-      float m = -CUDART_INF_F;
-      for (int r = g * p.group; r < (g + 1) * p.group; ++r)
-        m = fmaxf(m, epilogue(p, Cs[r * CS + c], m0 + r, gc));
-      p.gmax[(size_t)(gr0 / p.group) * p.ldg + gc] = f2bf(m);
+  if constexpr (T::kPersistent) {
+    if (threadIdx.x == 0) bulk_wait_all();  // the staging area outlives the stores that read it
+  }
+}
+
+int sm_count() {
+  static int n = 0;
+  if (!n) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
+template <int BN>
+int launch(const GemmArgs& p, const void* A, const void* W, cudaStream_t stream) {
+  using T = Tile<BN>;
+  // first: binds the context the tensor maps need
+  cudaFuncSetAttribute(gemm_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  const uint64_t adims[2] = {(uint64_t)p.K, (uint64_t)p.M}, wdims[2] = {(uint64_t)p.K, (uint64_t)p.N};
+  const uint64_t strides[1] = {(uint64_t)p.K * 2};
+  CUtensorMap amap, wmap, omap = {};
+  if (!pv_tensor_map(&amap, A, 2, adims, strides, BM) || !pv_tensor_map(&wmap, W, 2, wdims, strides, BN)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (T::kPersistent && p.out) {  // the output in boxes of 128 rows x 128 bytes
+    const int es = p.out_f32 ? 4 : 2;
+    const uint64_t odims[2] = {(uint64_t)p.N, (uint64_t)p.M}, ostr[1] = {(uint64_t)p.N * es};
+    if (!pv_tensor_map_of(&omap, p.out_f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                          p.out, 2, odims, ostr, 128 / es, BM)) {
+      return static_cast<int>(cudaErrorInvalidValue);
     }
   }
+  const int tiles = ((p.N + BN - 1) / BN) * ((p.M + BM - 1) / BM);
+  const int grid = T::kPersistent ? std::min(tiles, sm_count()) : tiles;
+  gemm_kernel<BN><<<grid, kThreads, T::kSmem, stream>>>(amap, wmap, omap, p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int pv_gemm(const void* A, int lda, const void* W, int ldw, const void* bias,
-                       const void* res, int ldr, int res_div, int res_f32, float res_scale,
-                       void* out, int ldo, int out_f32, void* pre, int ldp, void* gmax,
-                       int ldg, int group, int M, int N, int K, int act, void* stream) {
+// A (M, K), W (N, K), bias (N,) bf16; res (M / res_div, N) bf16 or f32; out
+// (M, N) bf16 or f32; pre (M, N) bf16; gmax (M / group, N) bf16; all
+// contiguous, 16-byte aligned, K % 8 == 0 (TMA's 16-byte row stride), group
+// a power of two that divides 128 and M.
+extern "C" int pv_gemm(const void* A, const void* W, const void* bias, const void* res, int res_div,
+                       int res_f32, float res_scale, void* out, int out_f32, void* pre, void* gmax,
+                       int group, int M, int N, int K, int act, void* stream) {
+  if (M < 1 || N < 1 || K < 1 || K % 8 || res_div < 1 || (gmax && (group < 1 || BM % group))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   GemmArgs p;
-  p.A = static_cast<const bf16*>(A);
-  p.W = static_cast<const bf16*>(W);
   p.bias = static_cast<const bf16*>(bias);
   p.res = res;
   p.out = out;
   p.pre = static_cast<bf16*>(pre);
   p.gmax = static_cast<bf16*>(gmax);
-  p.lda = lda;
-  p.ldw = ldw;
-  p.ldr = ldr;
-  p.ldo = ldo;
-  p.ldp = ldp;
-  p.ldg = ldg;
   p.M = M;
   p.N = N;
   p.K = K;
@@ -230,8 +573,11 @@ extern "C" int pv_gemm(const void* A, int lda, const void* W, int ldw, const voi
   p.group = group;
   p.act = act;
   p.res_scale = res_scale;
-  cudaFuncSetAttribute(gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-  gemm_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N <= 64) return launch<64>(p, A, W, s);
+  // The persistent instance where the main loop outweighs an epilogue that
+  // its one block an SM cannot overlap: no pre output, no GELU, and a
+  // residual only under a long K.
+  const bool light = !pre && act != 2 && (!res || K >= 2048);
+  return (N % 8 == 0 && K >= 256 && light) ? launch<256>(p, A, W, s) : launch<128>(p, A, W, s);
 }

@@ -19,7 +19,9 @@ int8 products, as the JAX block leaves its fused kernels when quantized
 (``nn/vit.py:181``). So does a block whose shape lies outside the fused
 gate (:func:`~pointvit_tpu_torch.ops.block_kernel.apf_block_shapes_ok`:
 head dim 64, S ≤ 1024), as the JAX block leaves its fused kernel there
-(``nn/vit.py:53-75``); its attention kernel takes any S.
+(``nn/vit.py:53-75``); its attention kernel takes any S. ``ViTBlock`` and
+``SerialAdapterBlock`` leave their fused chains outside that gate too, for
+an unfused forward through their layer modules.
 """
 
 from __future__ import annotations
@@ -46,11 +48,13 @@ from pointvit_tpu_torch.ops.gemm_kernel import gemm, reference_gemm
 from pointvit_tpu_torch.ops.serial_block_kernel import (
     fused_serial_block,
     reference_serial_block,
+    serial_block_shapes_ok,
     serial_block_weights,
 )
 from pointvit_tpu_torch.ops.vit_block_kernel import (
     fused_vit_block,
     reference_vit_block,
+    vit_block_shapes_ok,
     vit_block_weights,
 )
 
@@ -114,12 +118,13 @@ class ViTBlock(nn.Module):
 
         x = x + pos;  x = x + attn(norm1(x));  out = x + mlp(norm2(x))
 
-    At inference it runs :func:`~pointvit_tpu_torch.ops.vit_block_kernel.fused_vit_block`:
-    on the card the kernel chain, for the shapes of the blocks' gate
-    (head dim 64, S ≤ 1024: the JAX package's fused gate,
-    ``pallas_block.py:97-110``, at head dim 64), raising on the others
-    rather than running plain code; with ``implementation='torch'``, or on the CPU, its
-    plain version. Training is not ported yet.
+    At inference it runs :func:`~pointvit_tpu_torch.ops.vit_block_kernel.fused_vit_block`
+    for the shapes of the blocks' gate (head dim 64, S ≤ 1024: the JAX
+    package's fused gate, ``pallas_block.py:97-110``, at head dim 64): on
+    the card the kernel chain, with ``implementation='torch'`` or on the CPU
+    its plain version. Other shapes take :meth:`forward_unfused`, as the JAX
+    block leaves its fused kernels there (``nn/vit.py:128-150``); its
+    attention kernel takes any S. Training is not ported yet.
     """
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
@@ -147,10 +152,22 @@ class ViTBlock(nn.Module):
         x = x.to(self.dtype)
         if pos is not None:
             pos = pos.to(self.dtype)
+        if not vit_block_shapes_ok(*x.shape[-2:], self.num_heads):
+            return self.forward_unfused(x, pos=pos)
         weights = vit_block_weights(self, self.dtype)
         if self.implementation == "torch":
             return reference_vit_block(x, weights, self.num_heads, pos)
         return fused_vit_block(x, weights, self.num_heads, pos)
+
+    def forward_unfused(self, x: torch.Tensor, *, pos: torch.Tensor | None = None) -> torch.Tensor:
+        """The block through its layer modules, one plain op at a time (with
+        the attention kernel on the card), step for step the JAX block's
+        non-fused branch: ``pos`` added in x's dtype, then the two
+        residual branches."""
+        if pos is not None:
+            x = x + pos.to(x.dtype)
+        x = x + self.attn(layer_norm(x, self.norm1))
+        return x + self.mlp(layer_norm(x, self.norm2))
 
 
 class SerialAdapterBlock(nn.Module):
@@ -164,11 +181,12 @@ class SerialAdapterBlock(nn.Module):
 
     (each adapter is residual itself: a(y) = y + up(gelu(down(y)))). At
     inference it runs
-    :func:`~pointvit_tpu_torch.ops.serial_block_kernel.fused_serial_block`:
-    on the card the kernel chain (head dim 64, S ≤ 1024, the blocks' gate;
-    other shapes raise until its unfused forward is ported, ROADMAP A9),
-    with ``implementation='torch'`` or on the CPU its plain version.
-    Training is not ported yet.
+    :func:`~pointvit_tpu_torch.ops.serial_block_kernel.fused_serial_block`
+    for the shapes of the blocks' gate (head dim 64, S ≤ 1024): on the card
+    the kernel chain, with ``implementation='torch'`` or on the CPU its
+    plain version. Other shapes take :meth:`forward_unfused`, as the JAX
+    block leaves its fused kernels there (``nn/vit.py:275-294``). Training
+    is not ported yet.
     """
 
     def __init__(self, dim: int, num_heads: int, adapter_bottleneck: int = 64,
@@ -195,10 +213,19 @@ class SerialAdapterBlock(nn.Module):
             raise NotImplementedError(
                 "SerialAdapterBlock(train=True) is not ported yet (ROADMAP A9: renderer training)")
         x = x.to(self.dtype)
+        if not serial_block_shapes_ok(*x.shape[-2:], self.num_heads):
+            return self.forward_unfused(x)
         weights = serial_block_weights(self, self.dtype)
         if self.implementation == "torch":
             return reference_serial_block(x, weights, self.num_heads)
         return fused_serial_block(x, weights, self.num_heads)
+
+    def forward_unfused(self, x: torch.Tensor) -> torch.Tensor:
+        """The block through its layer modules, one plain op at a time (with
+        the attention kernel on the card), step for step the JAX block's
+        non-fused branch."""
+        x = x + self.adapter1(self.self_attention(layer_norm(x, self.ln_1)))
+        return x + self.adapter2(self.mlp(layer_norm(x, self.ln_2)))
 
 
 class PatchifyDense(nn.Module):

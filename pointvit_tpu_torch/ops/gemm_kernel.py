@@ -118,21 +118,18 @@ def gemm(a, w, bias=None, *, act="none", res=None, res_scale=1.0, res_div=1,
     out = torch.empty((M, N), dtype=out_dtype, device=dev) if out_dtype is not None else None
     gmax = torch.empty((M // group, N), dtype=torch.bfloat16, device=dev) if group else None
     fn = kernel("gemm", "pv_gemm", [
-        PTR, INT, PTR, INT, PTR,                 # A, lda, W, ldw, bias
-        PTR, INT, INT, INT, FLOAT,               # res, ldr, res_div, res_f32, res_scale
-        PTR, INT, INT, PTR, INT,                 # out, ldo, out_f32, pre, ldp
-        PTR, INT, INT,                           # gmax, ldg, group
+        PTR, PTR, PTR,                           # A, W, bias
+        PTR, INT, INT, FLOAT,                    # res, res_div, res_f32, res_scale
+        PTR, INT, PTR, PTR, INT,                 # out, out_f32, pre, gmax, group
         INT, INT, INT, INT, PTR,                 # M, N, K, act, stream
     ])
     err = fn(
-        a.data_ptr(), K, w.data_ptr(), K,
-        bias.data_ptr() if bias is not None else None,
-        res.data_ptr() if res is not None else None, N, res_div,
+        a.data_ptr(), w.data_ptr(), bias.data_ptr() if bias is not None else None,
+        res.data_ptr() if res is not None else None, res_div,
         int(res is not None and res.dtype == torch.float32), float(res_scale),
-        out.data_ptr() if out is not None else None, N,
-        int(out_dtype == torch.float32),
-        pre_out.data_ptr() if pre_out is not None else None, N,
-        gmax.data_ptr() if gmax is not None else None, N, group,
+        out.data_ptr() if out is not None else None, int(out_dtype == torch.float32),
+        pre_out.data_ptr() if pre_out is not None else None,
+        gmax.data_ptr() if gmax is not None else None, group,
         M, N, K, _ACTS[act], stream_ptr(dev),
     )
     check(err, "gemm", "pv_gemm")

@@ -120,6 +120,76 @@ def test_gemm_refuses_what_it_does_not_take(dev):
         gemm(torch.zeros(96, 8, device=dev, dtype=torch.bfloat16), w[:, :8].contiguous(), group=48)
 
 
+# The wgmma GEMM's edges: M off its 128-row tile (985 = 5 * 197), N of the
+# 64-wide instance and off every tile width, K of one zero-filled 64-deep
+# step (8) and exactly one (64).
+@pytest.mark.parametrize("M,K,N", [(985, 768, 64), (985, 64, 96), (985, 8, 768), (197, 64, 2304),
+                                   (985, 3072, 768)])
+@pytest.mark.parametrize("epilogue", ["gelu", "res_f32_pre", "res_bf16x2_f32"])
+def test_gemm_off_the_tiles(dev, M, K, N, epilogue):
+    gen = torch.Generator().manual_seed(7 * M + K + N)
+    a, w, bias = _rand(gen, M, K, dev=dev), _rand(gen, N, K, dev=dev, scale=K**-0.5), _rand(gen, N, dev=dev)
+    pre = want_pre = None
+    if epilogue == "gelu":
+        kw = dict(act="gelu")
+    elif epilogue == "res_f32_pre":  # pre_out beside an f32 out, as the serial block's proj
+        kw = dict(res=_rand(gen, M, N, dev=dev, dtype=torch.float32), out_dtype=torch.float32)
+        pre = torch.empty(M, N, dtype=torch.bfloat16, device=dev)
+        want_pre = torch.empty_like(pre)
+    else:  # the APF adapter's up-projection: bf16 residual twice, f32 out
+        kw = dict(res=_rand(gen, M, N, dev=dev), res_scale=2.0, out_dtype=torch.float32)
+    got, _ = gemm(a, w, bias, pre_out=pre, **kw)
+    want, _ = reference_gemm(a, w, bias, pre_out=want_pre, **kw)
+    assert got.dtype == want.dtype and got.shape == (M, N)
+    _assert_rel(got, want, 2.0**-7 if got.dtype == torch.bfloat16 else 2.0**-12)
+    if pre is not None:
+        _assert_rel(pre, want_pre, 2.0**-7)
+
+
+@pytest.mark.parametrize("G", [16, 32])
+@pytest.mark.parametrize("with_out", [True, False])
+def test_gemm_group_max_across_warps(dev, G, with_out):
+    """Groups of 16 rows reduce within one warp, of 32 across two."""
+    gen = torch.Generator().manual_seed(G + with_out)
+    M, K, N = 96 * G, 256, 384
+    a, w, bias = _rand(gen, M, K, dev=dev), _rand(gen, N, K, dev=dev, scale=K**-0.5), _rand(gen, N, dev=dev)
+    kw = dict(act="relu", group=G, out_dtype=torch.bfloat16 if with_out else None)
+    out, gmax = gemm(a, w, bias, **kw)
+    want_out, want_gmax = reference_gemm(a, w, bias, **kw)
+    _assert_rel(gmax, want_gmax, 2.0**-7)
+    assert (out is None) == (not with_out)
+    if with_out:
+        _assert_rel(out, want_out, 2.0**-7)
+
+
+def test_gemm_row_residual_in_f32(dev):
+    """res_div 16 with an f32 residual: the encoder's loc.Wl' + g row."""
+    gen = torch.Generator().manual_seed(16)
+    M, K, N = 16 * 197, 384, 768
+    a, w = _rand(gen, M, K, dev=dev), _rand(gen, N, K, dev=dev, scale=K**-0.5)
+    res = _rand(gen, M // 16, N, dev=dev, dtype=torch.float32, scale=2.0)
+    got, _ = gemm(a, w, res=res, res_div=16, act="relu")
+    want, _ = reference_gemm(a, w, res=res, res_div=16, act="relu")
+    _assert_rel(got, want, 2.0**-7)
+
+
+@pytest.mark.parametrize("N,K,pre", [(64, 768, True), (768, 768, True), (768, 768, False),
+                                     (2304, 3072, False)])
+def test_gemm_repeats_bit_for_bit(dev, N, K, pre):
+    """No split-K, no atomics: two runs of each instance give the same bits
+    (with pre_out: the 64- and 128-wide two-block tiles; without: the
+    persistent 128 x 256 tile, with an f32 residual at K = 3072)."""
+    gen = torch.Generator().manual_seed(N + K)
+    M = 4 * 197
+    a, w, bias = _rand(gen, M, K, dev=dev), _rand(gen, N, K, dev=dev, scale=K**-0.5), _rand(gen, N, dev=dev)
+    res = _rand(gen, M, N, dev=dev, dtype=torch.float32) if pre or K >= 2048 else None
+    pres = [torch.empty(M, N, dtype=torch.bfloat16, device=dev) if pre else None for _ in range(2)]
+    out1, _ = gemm(a, w, bias, res=res, out_dtype=torch.float32, pre_out=pres[0])
+    out2, _ = gemm(a, w, bias, res=res, out_dtype=torch.float32, pre_out=pres[1])
+    torch.cuda.synchronize()
+    assert torch.equal(out1, out2) and (not pre or torch.equal(pres[0], pres[1]))
+
+
 @pytest.mark.parametrize("B,S", [(3, S) for S in (1, 16, 65, 196, 197, 416, 513, 576, 577, 768,
                                                   1000, 1024, 1025, 1600, 2048)] + [(1, 197)])
 def test_attention_and_layernorm(dev, B, S):
@@ -372,6 +442,46 @@ def test_vit_block_refuses_what_the_kernels_do_not_take(dev):
     _assert_rel(vit_block_kernel.fused_vit_block(x, w, 6), vit_block_kernel.reference_vit_block(x, w, 6))
     with pytest.raises(ValueError, match="bf16"):
         vit_block_kernel.fused_vit_block(_rand(gen, 1, 64, 384, dev=dev, dtype=torch.float32), w, 6)
+
+
+def _unfused_above_the_gate(dev, make, E, seed, **kw):
+    """A block at S = 1100, above the blocks' gate, on the kernel path and
+    the plain path from the same weights: the kernel path must take the
+    unfused forward with the attention kernel launched as mha_qkv."""
+    gen = torch.Generator().manual_seed(seed)
+    blk = make(None)
+    with torch.no_grad():
+        for p in blk.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * (p.shape[-1] ** -0.5 if p.dim() == 2 else 0.2))
+    plain = make("torch")
+    plain.load_state_dict(blk.state_dict())
+    blk, plain = blk.to(dev).eval(), plain.to(dev).eval()
+    x = _rand(gen, 2, 1100, E, dev=dev)
+    kw = {k: v(gen) for k, v in kw.items()}
+    with torch.inference_mode():
+        _build.reset_launch_counts()
+        got = blk(x, **kw)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        want = plain(x, **kw)
+    fused = ("vit_block", "serial_block", "attention", "gemm", "layernorm", "pos_layernorm")
+    assert counts["mha_qkv"] == 1 and not any(counts[k] for k in fused), counts
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    _assert_rel(got, want, tol=0.05)
+
+
+def test_vit_block_above_the_gate_serves_unfused(dev):
+    from pointvit_tpu_torch.nn.vit import ViTBlock
+
+    make = lambda impl: ViTBlock(384, 6, dtype=torch.bfloat16, implementation=impl)
+    _unfused_above_the_gate(dev, make, 384, 21, pos=lambda gen: _rand(gen, 1, 1100, 384, dev=dev, scale=0.5))
+
+
+def test_serial_block_above_the_gate_serves_unfused(dev):
+    from pointvit_tpu_torch.nn.vit import SerialAdapterBlock
+
+    make = lambda impl: SerialAdapterBlock(768, 12, 64, dtype=torch.bfloat16, implementation=impl)
+    _unfused_above_the_gate(dev, make, 768, 22)
 
 
 def test_pix4point_serves_through_its_kernels(dev):

@@ -167,3 +167,23 @@ def test_gemm_writes_the_branch_before_its_residual(out_dtype):
     assert torch.equal(out, want)  # asking for pre_out changes nothing else
     with pytest.raises(ValueError, match="pre_out"):
         gemm(a, w, bias, out_dtype=None, group=8, pre_out=pre)
+
+
+def test_block_above_the_gate_runs_unfused_and_matches_the_jax_block(monkeypatch):
+    """S = 1040, past the blocks' gate (S ≤ 1024 at head dim 64): the block
+    takes its unfused forward, as the JAX block leaves its fused kernels
+    there, and matches the JAX block's non-fused forward."""
+    from pointvit_tpu_torch.nn import vit
+
+    x, variables, blk = _case(6, 1040)
+    x = x[:1]
+    taken = []
+    unfused = vit.SerialAdapterBlock.forward_unfused
+    monkeypatch.setattr(vit.SerialAdapterBlock, "forward_unfused",
+                        lambda self, x: taken.append(x.shape[1]) or unfused(self, x))
+    with jax.default_matmul_precision("highest"):
+        want = jax.jit(JBlock(HEADS, adapter_bottleneck=BOTTLENECK).apply)(variables, jnp.asarray(x))
+    with torch.inference_mode():
+        got = blk(torch.from_numpy(x))
+    assert taken == [1040]
+    _assert_rel(got, want, 1e-4)

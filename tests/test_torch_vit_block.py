@@ -142,3 +142,24 @@ def test_block_refuses_training_and_other_mlp_ratios():
         blk(torch.zeros(1, S, E), train=True)
     with pytest.raises(ValueError, match="4·dim"):
         ViTBlock(E, HEADS, mlp_ratio=2.0)
+
+
+def test_block_above_the_gate_runs_unfused_and_matches_the_jax_block(monkeypatch):
+    """S = 1040, past the blocks' gate (S ≤ 1024 at head dim 64): the block
+    takes its unfused forward, as the JAX block leaves its fused kernels
+    there, and matches the JAX block's non-fused forward."""
+    from pointvit_tpu_torch.nn import vit
+
+    x, poses, variables, blk = _case(5, batch=1, seq=1040)
+    pos = poses["shared"]
+    taken = []
+    unfused = vit.ViTBlock.forward_unfused
+    monkeypatch.setattr(vit.ViTBlock, "forward_unfused",
+                        lambda self, x, **kw: taken.append(x.shape[1]) or unfused(self, x, **kw))
+    with jax.default_matmul_precision("highest"):
+        want = jax.jit(lambda v, t, q: JBlock(HEADS).apply(v, t, pos=q))(variables, jnp.asarray(x),
+                                                                          jnp.asarray(pos))
+    with torch.inference_mode():
+        got = blk(torch.from_numpy(x), pos=torch.from_numpy(pos))
+    assert taken == [1040]
+    _assert_rel(got, want, 1e-4)
