@@ -102,13 +102,37 @@
    within 2^-7 and f32 outputs within 2^-12 of max|ref| of the plain
    version, two runs bit-equal, timed beside its bound, its TFLOP/s, the
    plain version and ``torch.nn.functional.linear`` on the same bf16
-   operands (cuBLAS, without the epilogue; timed only).
+   operands (cuBLAS, without the epilogue; timed only); also block 0's
+   products of the served Pix4Point (qkv, fc1, fc2: M = 131,328) and of
+   its P3 stage. Every instance that can take a product (the ping-pong
+   one, the two-block 128 x 128) is held and timed beside the one picked.
+13. Row 8's split: block 0 of the served Pix4Point launch by launch
+   (pos-LayerNorm, qkv, attention, proj + LN2 as one launch, fc1, fc2;
+   proj and LN2 also as two launches), each timed beside its bound.
+14. Pix4Point off the P3 kernel's shapes: one cloud of 1000 points and a
+   bucket-8 request of 1004-point clouds (B S % 16 != 0): the P3 stage
+   runs unfused, as in JAX (no p3_embed launch), the blocks on their
+   kernels, logits held against the plain path.
+15. f32 models (``bf16=False``): APF slim2 and Pix4Point vit_small each
+   serve one request of 32 clouds on the kernel path (the f32 GEMM, the
+   f32 LayerNorms, the attention for any head dim) and the plain path:
+   logits within 1 % of the largest, argmax equal on 99 % of clouds; the
+   bf16 GEMM and attention must not launch.
+16. A head dim 16 model (benchmarks/train_step_bench.py's small config:
+   E 64, 4 heads, f32) at batch 256: one request served on both paths,
+   then three training steps on both paths (first loss within 1e-4,
+   gradients within 1e-3 relative L2); the any-head-dim attention forward
+   and backward must launch. Then ``csrc/attention_any.cu`` alone at head
+   dims 8, 16, 32 and 128 in bf16 and f32 against its plain version, and
+   at the f32 Pix4Point's block 0 beside SDPA (and at head dim 16).
+17. The blocks keep their launch-ready weights: the re-cast that each
+   request no longer makes is timed per model.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero; without a CUDA device it exits 1 before doing anything. It imports
 nothing of JAX and nothing of the JAX package ``pointvit_tpu``. The paths run
-at full depth; the whole run takes under three minutes of command time.
+at full depth; the whole run takes about two minutes of command time.
 """
 
 from __future__ import annotations
@@ -188,6 +212,26 @@ LONG_NPOINT, LONG_BATCH = 1024, 32
 # of 8 (the unfused block, whose attention kernel takes any S).
 LONGER_NPOINT, LONGER_BATCH, LONGER_POINTS = 1536, 8, 4096
 
+# f32 serving (APF slim2 and Pix4Point vit_small, bf16=False): one request
+# of F32_BATCH clouds each. Kernel and plain path are both f32 and differ in
+# summation order only, far below these bounds (the models' gates).
+F32_BATCH = 32
+F32_LOGIT_REL_TOL = 0.01
+# f32 kernels against their plain versions: f32 summation order only.
+F32_REL_TOL = 2.0**-12
+# The head dim 16 model: benchmarks/train_step_bench.py's small config (E 64,
+# 4 heads, npoint 32, depth 2, second width 64, f32, 256 points; slim2's
+# nsample 16) at the slice's batch of 256, 15 classes.
+SMALL_CONFIG = dict(num_classes=15, in_channels=3, embedding_dim=64, npoint=32, nsample=16, depth=2,
+                    num_heads=4, encoder_second_width=64)
+SMALL_POINTS, SMALL_STEPS = 256, 3
+F32_LOSS_REL_TOL, F32_GRAD_REL_TOL = 1e-4, 1e-3
+# csrc/attention_any.cu held alone at these head dims, both dtypes, on
+# (ANY_BATCH, ANY_SEQ, 3 ANY_WIDTH) seeded inputs.
+ANY_HEAD_DIMS, ANY_BATCH, ANY_SEQ, ANY_WIDTH = (8, 16, 32, 128), 32, 197, 384
+# Pix4Point off the P3 kernel's shapes: (clouds, points) with B S % 16 != 0.
+P4P_OFF_SHAPES = ((1, 1000), (8, 1004))
+
 # The H100 SXM's published peaks (dense): the bound of a kernel is the larger
 # of its FLOPs over the rate for their type and its bytes over HBM's rate.
 PEAK_BF16, PEAK_F32, PEAK_INT8, HBM_BPS = 989e12, 67e12, 1979e12, 3.35e12
@@ -206,11 +250,18 @@ KERNELS = {
     "quant_dense": ("pointvit_tpu_torch/csrc/quant.cu", "pointvit_tpu/ops/pallas_quant.py:60"),
     "attn_block": ("pointvit_tpu_torch/csrc/attn_block.cu",
                    "pointvit_tpu/ops/pallas_attention.py:508"),
+    "attention_any": ("pointvit_tpu_torch/csrc/attention_any.cu",
+                      "pointvit_tpu/ops/pallas_attention.py:205"),
+    "attention_any_bwd": ("pointvit_tpu_torch/csrc/attention_any.cu",
+                          "pointvit_tpu/ops/pallas_attention.py:399"),
+    "gemm_f32": ("pointvit_tpu_torch/csrc/gemm.cu", "pointvit_tpu/ops/pallas_block.py:338"),
+    "gemm_pingpong": ("pointvit_tpu_torch/csrc/gemm.cu", "pointvit_tpu/ops/pallas_block.py:338"),
+    "proj_layernorm": ("pointvit_tpu_torch/csrc/gemm.cu", "pointvit_tpu/ops/pallas_block.py:338"),
 }
 # The counters each path must raise: the ports and the kernels they chain.
 SERVING_COUNTERS = ("fps", "knn", "group_encoder", "apf_block", "gemm", "layernorm", "attention")
 TRAINING_COUNTERS = ("fps", "knn", "mha_qkv", "mha_qkv_bwd")
-P4P_COUNTERS = ("fps", "knn", "p3_embed", "vit_block", "gemm", "layernorm", "pos_layernorm",
+P4P_COUNTERS = ("fps", "knn", "p3_embed", "vit_block", "gemm", "proj_layernorm", "pos_layernorm",
                 "attention")
 RENDERER_COUNTERS = ("serial_block", "gemm", "layernorm", "attention")
 # Quantized APF serving: the int8 products, the tokenizer and the attention
@@ -248,6 +299,8 @@ GEMM_BF16_REL_TOL, GEMM_F32_REL_TOL = 2.0**-7, 2.0**-12
 # The distinct products of each chain, in the order the chain first calls them.
 SERIAL_GEMMS = ("qkv", "proj", "dn", "up", "fc1", "fc2")
 APF_GEMMS = ("qkv", "proj", "fc1", "dn", "up", "fc2")
+VIT_GEMMS = ("qkv", "fc1", "fc2")  # proj runs with LN2 as one launch (vit_split)
+P3_GEMMS = ("x.W01 (max per group)", "g.W2g", "h.W2l", "h2.W3 (max per group)")
 ENCODER_GEMMS = ("first_0", "first_1", "first_2 (max per group)", "second_0_global",
                  "second_0_local", "second_1 (max per group)")
 
@@ -633,7 +686,7 @@ def gemm_phase(torch, label, names, calls) -> list:
     GEMM_F32_REL_TOL of max|ref|; two runs bit-equal), timed beside its bound,
     the plain version and ``F.linear`` on the same bf16 operands (cuBLAS,
     timed only)."""
-    from pointvit_tpu_torch.ops.gemm_kernel import gemm, reference_gemm
+    from pointvit_tpu_torch.ops.gemm_kernel import gemm, gemm_instance, reference_gemm
 
     if len(names) != len(calls):
         fail(f"gemm {label}: {len(calls)} distinct products, expected {len(names)}")
@@ -647,7 +700,7 @@ def gemm_phase(torch, label, names, calls) -> list:
         again = gemm(a, w, bias, pre_out=pre[1], **kw)
         want = reference_gemm(a, w, bias, pre_out=pre[2], **kw)
         torch.cuda.synchronize()
-        errs = {}
+        errs, max_abs = {}, 0.0
         for tag, g, g2, ref in (("out", got[0], again[0], want[0]), ("gmax", got[1], again[1], want[1]),
                                 ("pre", pre[0], pre[1], pre[2])):
             if g is None:
@@ -655,10 +708,33 @@ def gemm_phase(torch, label, names, calls) -> list:
             if not torch.equal(g, g2):
                 fail(f"gemm {label} {name}: two runs of {tag} differ")
             tol = GEMM_F32_REL_TOL if g.dtype == torch.float32 else GEMM_BF16_REL_TOL
-            _, r = rel_err(torch, g, ref)
+            d, r = rel_err(torch, g, ref)
             if not r <= tol:
                 fail(f"gemm {label} {name}: {tag} {r:.3g} of max|ref| from its plain version (bound {tol:.3g})")
             errs[tag] = r
+            max_abs = max(max_abs, d)
+        # Each instance that can take the product (the ping-pong one and the
+        # two-block 128-wide tile; the pick is one of them or the
+        # persistent 128 x 256), held and timed beside the pick.
+        picked = gemm_instance(M, N, K, act=kw.get("act", "none"), res=kw.get("res"),
+                               group=kw.get("group", 0), pre_out=pre[0])
+        others = {}
+        for inst in ("pingpong", "128x128"):
+            if inst == picked or (inst == "pingpong" and (N % 8 or kw.get("group"))) or N <= 64:
+                continue
+            outs = [gemm(a, w, bias, pre_out=pre[1], instance=inst, **kw) for _ in range(2)]
+            torch.cuda.synchronize()
+            if not all(u is None or torch.equal(u, v) for u, v in zip(*outs)):
+                fail(f"gemm {label} {name} {inst}: two runs differ")
+            for tag, g, ref in (("out", outs[0][0], want[0]), ("gmax", outs[0][1], want[1]),
+                                ("pre", pre[1], pre[2])):
+                if g is None:
+                    continue
+                tol = GEMM_F32_REL_TOL if g.dtype == torch.float32 else GEMM_BF16_REL_TOL
+                if not rel_err(torch, g, ref)[1] <= tol:
+                    fail(f"gemm {label} {name} {inst}: {tag} disagrees with the plain version")
+            others[inst] = cuda_ms(torch, lambda: gemm(a, w, bias, pre_out=pre[1], instance=inst, **kw), 10)
+            del outs
         del again, want
         flops = 2.0 * M * N * K
         moved = nbytes(*(t for t in (a, w, bias, kw.get("res"), got[0], got[1], pre[0]) if t is not None))
@@ -666,11 +742,12 @@ def gemm_phase(torch, label, names, calls) -> list:
         row = dict(name=name, shape=f"({M}, {K}) -> {N}", ms=ms, tflops=flops / ms / 1e9,
                    plain_ms=cuda_ms(torch, lambda: reference_gemm(a, w, bias, pre_out=pre[2], **kw), 2),
                    library_ms=cuda_ms(torch, lambda: torch.nn.functional.linear(a, w, bias), 10),
-                   errs=errs, **bound(flops, moved))
+                   errs=errs, max_abs_err=max_abs, instance=picked, others=others, **bound(flops, moved))
         epi = epilogue_of(kw, has_pre)
-        print(f"time gemm {label} {name} {row['shape']} [{epi}]: kernel {ms:.4f} ms, "
+        alt = "".join(f", {k} {v:.4f} ms" for k, v in others.items())
+        print(f"time gemm {label} {name} {row['shape']} [{epi}]: kernel ({picked}) {ms:.4f} ms, "
               f"{row['tflops']:.1f} TFLOP/s, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
-              f"plain {row['plain_ms']:.4f} ms, F.linear (cuBLAS) {row['library_ms']:.4f} ms; "
+              f"plain {row['plain_ms']:.4f} ms, F.linear (cuBLAS) {row['library_ms']:.4f} ms{alt}; "
               f"max|d| / max|ref| {', '.join(f'{k} {v:.3g}' for k, v in errs.items())}; "
               f"repeats bit-equal", flush=True)
         rows.append(row)
@@ -1145,6 +1222,307 @@ def apf_long_phase(torch, dev, _build, base, npoint, batch, points, seed, need, 
     return {"counts": counts, "block": model.blocks[0], "tokens": tokens[0]}
 
 
+def f32_serving_phase(torch, dev, _build, label, make, state, points, seed, need) -> dict:
+    """An f32 model (``make(implementation)``) on ``state``'s weights serves
+    one request of F32_BATCH clouds of ``points`` points on the kernel path
+    and the plain path (both f32): logits within F32_LOGIT_REL_TOL of the
+    largest, argmax equal on ARGMAX_AGREEMENT of the clouds; the counters in
+    ``need`` launch, the bf16 GEMM and attention never. Returns the counts
+    and block 0's input tokens (for the kernel line)."""
+    from pointvit_tpu_torch.serve import InferenceSession
+
+    model, plain = make(None), make("torch")
+    model.load_state_dict(state)
+    plain.load_state_dict(state)
+    sess = InferenceSession(model, buckets=(F32_BATCH,), device=dev)
+    psess = InferenceSession(plain, buckets=(F32_BATCH,), device=dev)
+    req = np.random.default_rng(seed).standard_normal((F32_BATCH, points, 3)).astype(np.float32)
+    sess.warmup(req[0])
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    tokens = []
+    blocks = model.blocks if hasattr(model, "blocks") else model.model.blocks
+    hook = blocks[0].register_forward_pre_hook(lambda _, a, kw=None: tokens.append(a[0]))
+    try:
+        got = sess.predict_logits(req)
+    finally:
+        hook.remove()
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    print(f"{label} f32 launches during serving: {json.dumps(counts)}", flush=True)
+    want = psess.predict_logits(req)
+    if got.shape != want.shape or not np.isfinite(got).all():
+        fail(f"{label} f32 logits: shape {got.shape}, finite {np.isfinite(got).all()}")
+    agree = float((got.argmax(-1) == want.argmax(-1)).mean())
+    dlogit, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+    tk = cuda_ms(torch, lambda: sess.predict_logits(req), 2)
+    tp = cuda_ms(torch, lambda: psess.predict_logits(req), 2)
+    print(f"{label} f32 serving, one request of {F32_BATCH} clouds of {points} points: argmax "
+          f"agreement {agree:.4f} (need >= {ARGMAX_AGREEMENT}), max|dlogit| {dlogit:.6g} vs max|logit| "
+          f"{scale:.6g} (bound {F32_LOGIT_REL_TOL} x max|logit|); kernel path {tk:.3f} ms, plain path "
+          f"{tp:.3f} ms", flush=True)
+    if agree < ARGMAX_AGREEMENT or dlogit > F32_LOGIT_REL_TOL * scale:
+        fail(f"{label} f32 kernel-path logits disagree with the plain path")
+    for name in need:
+        if counts.get(name, 0) <= 0:
+            fail(f"the {label} f32 serving path never launched the {name} kernel")
+    for name in ("gemm", "attention", "mha_qkv"):
+        if counts.get(name, 0):
+            fail(f"the {label} f32 serving path launched the bf16 kernel {name}")
+    del sess, psess, model, plain
+    torch.cuda.empty_cache()
+    return {"counts": counts, "tokens": tokens[0], "block": blocks[0]}
+
+
+def small_model_phase(torch, dev, _build) -> dict:
+    """The train_step_bench small config (E 64, 4 heads of 16, f32, npoint
+    32, 256 points) at batch 256: one request served on both paths, then
+    SMALL_STEPS training steps on both paths from the same weights, batch
+    and draws (f32: first loss within F32_LOSS_REL_TOL, first-step
+    gradients within F32_GRAD_REL_TOL relative L2 of the plain path's). The
+    any-head-dim attention forward and backward must launch. Returns the
+    serving and training counts and block 0's qkv."""
+    from pointvit_tpu_torch.models import AdaptPointFormer, apf_trainable_mask
+    from pointvit_tpu_torch.nn.layers import layer_norm, linear
+    from pointvit_tpu_torch.serve import InferenceSession
+    from pointvit_tpu_torch.train import Trainer, build_optimizer, timm_cosine_schedule
+
+    cfg = dict(SMALL_CONFIG, dtype=torch.float32)
+    models = {"kernel": AdaptPointFormer(**cfg), "plain": AdaptPointFormer(**cfg, implementation="torch")}
+    randomize(torch, models["kernel"], torch.Generator().manual_seed(SEED + 20))
+    models["plain"].load_state_dict(models["kernel"].state_dict())
+    state = {k: v.clone() for k, v in models["kernel"].state_dict().items()}
+    rng = np.random.default_rng(SEED + 20)
+    pts, lbl = shape_clouds(rng, TRAIN_BATCH, SMALL_CONFIG["num_classes"], SMALL_POINTS)
+
+    sess = InferenceSession(models["kernel"], buckets=(TRAIN_BATCH,), device=dev)
+    psess = InferenceSession(models["plain"], buckets=(TRAIN_BATCH,), device=dev)
+    sess.warmup(pts[0])
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    tokens = []
+    hook = models["kernel"].blocks[0].register_forward_pre_hook(lambda _, a: tokens.append(a[0]))
+    try:
+        got = sess.predict_logits(pts)
+    finally:
+        hook.remove()
+    torch.cuda.synchronize()
+    serve_counts = _build.launch_counts()
+    want = psess.predict_logits(pts)
+    agree = float((got.argmax(-1) == want.argmax(-1)).mean())
+    dlogit, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+    tk = cuda_ms(torch, lambda: sess.predict_logits(pts), 3)
+    tp = cuda_ms(torch, lambda: psess.predict_logits(pts), 3)
+    print(f"head dim 16 model (E 64, 4 heads, f32) serving {TRAIN_BATCH} clouds: argmax agreement "
+          f"{agree:.4f}, max|dlogit| {dlogit:.6g} vs max|logit| {scale:.6g} (bound "
+          f"{F32_LOGIT_REL_TOL} x); kernel path {tk:.3f} ms, plain path {tp:.3f} ms; launches "
+          f"{json.dumps(serve_counts)}", flush=True)
+    if not np.isfinite(got).all() or agree < ARGMAX_AGREEMENT or dlogit > F32_LOGIT_REL_TOL * scale:
+        fail("the head dim 16 model's kernel-path logits disagree with the plain path")
+    for name in ("attention_any", "gemm_f32", "group_encoder"):
+        if serve_counts.get(name, 0) <= 0:
+            fail(f"the head dim 16 model's serving never launched {name}")
+    blk = models["kernel"].blocks[0]
+    with torch.inference_mode():
+        qkv = linear(layer_norm(tokens[0], blk.norm1), blk.attention.qkv).contiguous()
+    del sess, psess
+
+    trainable = sorted(apf_trainable_mask(models["kernel"]))
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_small_")
+    x, y = torch.from_numpy(pts).to(dev), torch.from_numpy(lbl).to(dev)
+    res = {"loss": {}, "grads": {}, "ms": {}}
+    for path, model in models.items():
+        model.load_state_dict(state)
+        sched = timm_cosine_schedule(LR, 100, 1, warmup_epochs=5, warmup_lr_init=1e-3)
+        opt = build_optimizer(model, sched, weight_decay=WEIGHT_DECAY,
+                              trainable_mask=apf_trainable_mask(model))
+        tr = Trainer(model, train_dataset=None, test_dataset=None, optimizer=opt, schedule=sched,
+                     batch_size=TRAIN_BATCH, epochs=1, label_smoothing=LABEL_SMOOTHING,
+                     output_dir=out_dir, seed=SEED, device=dev, train_loader=[], test_loader=[],
+                     save_config_snapshot=False)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        losses = [tr.train_step(x, y)[0]]
+        res["grads"][path] = {n: p.grad.detach().clone()
+                              for n, p in tr.model.named_parameters() if n in trainable}
+        t0.record()
+        for _ in range(SMALL_STEPS - 1):
+            losses.append(tr.train_step(x, y)[0])
+        t1.record()
+        torch.cuda.synchronize()
+        res["ms"][path] = t0.elapsed_time(t1) / (SMALL_STEPS - 1)
+        if path == "kernel":
+            res["counts"] = _build.launch_counts()
+        res["loss"][path] = [v.item() for v in losses]
+        del tr, opt
+    shutil.rmtree(out_dir)
+    lk, lp = res["loss"]["kernel"], res["loss"]["plain"]
+    d = abs(lk[0] - lp[0]) / abs(lp[0])
+    gk, gp = res["grads"]["kernel"], res["grads"]["plain"]
+    flat = lambda g: torch.cat([g[n].float().flatten() for n in trainable])  # noqa: E731
+    err = rel_l2(flat(gk), flat(gp))
+    print(f"head dim 16 model training, {SMALL_STEPS} steps of {TRAIN_BATCH} clouds: losses kernel "
+          f"path {lk}, plain path {lp}; first loss |d| / |plain| {d:.3g} (bound {F32_LOSS_REL_TOL}); "
+          f"first-step gradients of {len(trainable)} trainable tensors, relative L2 {err:.3g} (bound "
+          f"{F32_GRAD_REL_TOL}); kernel path {res['ms']['kernel']:.3f} ms/step, plain path "
+          f"{res['ms']['plain']:.3f} ms/step; launches {json.dumps(res['counts'])}", flush=True)
+    if not (np.isfinite(lk + lp).all() and d <= F32_LOSS_REL_TOL and err <= F32_GRAD_REL_TOL):
+        fail("the head dim 16 model's training disagrees between the kernel and plain paths")
+    for name in ("attention_any", "attention_any_bwd"):
+        if res["counts"].get(name, 0) <= 0:
+            fail(f"the head dim 16 model's training never launched {name}")
+    del models
+    torch.cuda.empty_cache()
+    return {"serve_counts": serve_counts, "train_counts": res["counts"], "qkv": qkv}
+
+
+def attention_any_phase(torch, dev) -> list:
+    """csrc/attention_any.cu forward and backward at head dims 8, 16, 32 and
+    128, bf16 and f32, on seeded (32, 197, 3 x 384) inputs against their
+    plain versions: bf16 within BF16_REL_TOL, f32 within F32_REL_TOL of
+    max|ref| (dq, dk, dv each against its own), two runs bit-equal."""
+    from pointvit_tpu_torch.ops import attention_kernel
+
+    rows = []
+    for D in ANY_HEAD_DIMS:
+        heads = ANY_WIDTH // D
+        for dt in (torch.bfloat16, torch.float32):
+            gen = torch.Generator().manual_seed(SEED + 30 + D)
+            qkv = (2.0 * torch.randn(ANY_BATCH, ANY_SEQ, 3 * ANY_WIDTH, generator=gen)).to(dev, dt)
+            g = torch.randn(ANY_BATCH, ANY_SEQ, ANY_WIDTH, generator=gen).to(dev, dt)
+            tol = BF16_REL_TOL if dt == torch.bfloat16 else F32_REL_TOL
+            with torch.inference_mode():
+                out, out2 = (attention_kernel.mha_qkv(qkv, heads) for _ in range(2))
+                dq, dq2 = (attention_kernel.mha_qkv_bwd(qkv, g, heads) for _ in range(2))
+                ref = attention_kernel.reference_mha_qkv(qkv, heads)
+                dref = attention_kernel.reference_mha_qkv_bwd(qkv, g, heads)
+                torch.cuda.synchronize()
+                errs = [rel_err(torch, out, ref)[1]] + [
+                    rel_err(torch, dq[..., i * ANY_WIDTH:(i + 1) * ANY_WIDTH],
+                            dref[..., i * ANY_WIDTH:(i + 1) * ANY_WIDTH])[1] for i in range(3)]
+                if not (torch.equal(out, out2) and torch.equal(dq, dq2)):
+                    fail(f"attention_any D={D} {dt}: two runs differ")
+                if not max(errs) <= tol:
+                    fail(f"attention_any D={D} {dt}: {max(errs):.3g} of max|ref| from its plain "
+                         f"version (bound {tol:.3g})")
+                ms = cuda_ms(torch, lambda: attention_kernel.mha_qkv(qkv, heads), 3)
+                bwd_ms = cuda_ms(torch, lambda: attention_kernel.mha_qkv_bwd(qkv, g, heads), 3)
+            print(f"attention_any D={D} {str(dt)[6:]} {tuple(qkv.shape)} x {heads} heads: out, dq, dk, "
+                  f"dv against max|ref| {', '.join(f'{e:.3g}' for e in errs)} (bound {tol:.3g}), "
+                  f"repeats bit-equal; forward {ms:.4f} ms, backward {bwd_ms:.4f} ms", flush=True)
+            rows.append(dict(D=D, dtype=str(dt)[6:], errs=errs, ms=ms, bwd_ms=bwd_ms))
+            del qkv, g, out, out2, dq, dq2, ref, dref
+    torch.cuda.empty_cache()
+    return rows
+
+
+def p3_off_shape_phase(torch, dev, _build, model) -> dict:
+    """Pix4Point (the served bf16 model) on one cloud of 1000 points (S =
+    250) and on a bucket-8 request of 1004-point clouds (S = 251): B S % 16
+    != 0, so P3Embed runs stage_unfused, as the JAX module does; the p3_embed
+    kernel must not launch, the blocks' must. Logits held against the plain
+    path as the other bf16 requests of a few clouds are (untied argmax)."""
+    from pointvit_tpu_torch.models import build_model
+    from pointvit_tpu_torch.serve import InferenceSession
+
+    plain = build_model(P4P_CONFIG, implementation="torch")
+    plain.load_state_dict(model.state_dict())
+    sess = InferenceSession(model, buckets=(1, 8), device=dev)
+    psess = InferenceSession(plain, buckets=(1, 8), device=dev)
+    rng = np.random.default_rng(SEED + 40)
+    counts = {}
+    for n, points in P4P_OFF_SHAPES:
+        req = rng.standard_normal((n, points, 3)).astype(np.float32)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        got = sess.predict_logits(req)
+        torch.cuda.synchronize()
+        c = _build.launch_counts()
+        want = psess.predict_logits(req)
+        same, gap, decided = untied(got, want)
+        agree = float(same[decided].mean()) if decided.any() else 1.0
+        dlogit, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+        print(f"pix4point {n} cloud(s) of {points} points (S = {points // 4}): p3_embed launches "
+              f"{c.get('p3_embed', 0)}, vit_block {c.get('vit_block', 0)}; argmax agreement "
+              f"{agree:.4f} over the {int(decided.sum())} untied, max|dlogit| {dlogit:.6g} vs "
+              f"max|logit| {scale:.6g} (bound {LOGIT_REL_TOL} x)", flush=True)
+        if got.shape != (n, P4P_CONFIG["num_classes"]) or not np.isfinite(got).all():
+            fail(f"pix4point at {points} points: shape {got.shape}, finite {np.isfinite(got).all()}")
+        if c.get("p3_embed", 0) or c.get("vit_block", 0) <= 0:
+            fail(f"pix4point at {points} points took the P3 kernel or left the block kernels")
+        if agree < ARGMAX_AGREEMENT or dlogit > LOGIT_REL_TOL * scale:
+            fail(f"pix4point at {points} points: kernel-path logits disagree with the plain path")
+        counts = {k: counts.get(k, 0) + v for k, v in c.items()}
+    del plain, psess
+    return counts
+
+
+def vit_split(torch, x0, w, heads, pos) -> dict:
+    """Row 8's chain, launch by launch, on block 0's inputs: pos-LayerNorm,
+    qkv, attention, proj + LN2 (one launch), fc1, fc2, each timed alone
+    (CUDA events) beside its bound; and, beside them, proj and LN2 as the
+    two launches they were. The products are the GEMM phase's rows. Returns
+    the split and the proj + LN2 launch's kernel-line entry."""
+    from pointvit_tpu_torch.ops import block_kernel, vit_block_kernel
+    from pointvit_tpu_torch.ops.gemm_kernel import gemm
+
+    B, S, E = x0.shape
+    g1, b1, wqkv, bqkv, wproj, bproj, g2, b2, wfc1, bfc1, wfc2, bfc2 = w
+    x2 = x0.reshape(B * S, E).contiguous()
+    table = vit_block_kernel._pos_table(pos, B, S, E).contiguous()
+    xp, h = block_kernel.pos_layer_norm(x2, table, g1, b1)
+    qkv, _ = gemm(h, wqkv, bqkv)
+    att = block_kernel.attention(qkv.reshape(B, S, 3 * E), heads).reshape(B * S, E)
+    x1, h2 = vit_block_kernel.proj_layer_norm(att, wproj, bproj, xp, g2, b2)
+    want = vit_block_kernel.reference_proj_layer_norm(att, wproj, bproj, xp, g2, b2)
+    errs = [rel_err(torch, got, ref) for got, ref in zip((x1, h2), want)]
+    print(f"proj + LN2 one launch ({B * S}, {E}): x1, LN2(x1) max|d| / max|ref| "
+          f"{errs[0][1]:.3g}, {errs[1][1]:.3g} (bound {BF16_REL_TOL:.3g})", flush=True)
+    if not max(e[1] for e in errs) <= BF16_REL_TOL:
+        fail("proj_layernorm disagrees with its plain version")
+    h3, _ = gemm(h2, wfc1, bfc1, act="gelu")
+    proj_ln = lambda: vit_block_kernel.proj_layer_norm(att, wproj, bproj, xp, g2, b2)  # noqa: E731
+    steps = {
+        "pos_layernorm": (lambda: block_kernel.pos_layer_norm(x2, table, g1, b1), 0.0,
+                          nbytes(x2, table, xp, h)),
+        "qkv": (lambda: gemm(h, wqkv, bqkv), 2.0 * B * S * wqkv.numel(), nbytes(h, wqkv, qkv)),
+        "attention": (lambda: block_kernel.attention(qkv.reshape(B, S, 3 * E), heads),
+                      4.0 * B * S * S * E, nbytes(qkv, att)),
+        "proj_layernorm": (proj_ln, 2.0 * B * S * wproj.numel(), nbytes(att, wproj, xp, x1, h2)),
+        "fc1": (lambda: gemm(h2, wfc1, bfc1, act="gelu"), 2.0 * B * S * wfc1.numel(),
+                nbytes(h2, wfc1, h3)),
+        "fc2": (lambda: gemm(h3, wfc2, bfc2, res=x1), 2.0 * B * S * wfc2.numel(),
+                nbytes(h3, wfc2, x1, x1)),
+    }
+    split = {name: dict(ms=cuda_ms(torch, fn, 10), **bound(flops, moved))
+             for name, (fn, flops, moved) in steps.items()}
+    apart = {"proj": cuda_ms(torch, lambda: gemm(att, wproj, bproj, res=xp), 10),
+             "layernorm": cuda_ms(torch, lambda: block_kernel.layer_norm(x1, g2, b2), 10)}
+    total = sum(r["ms"] for r in split.values())
+    print("vit block split (block 0 of the served Pix4Point, CUDA events per launch, ms [bound]): "
+          + ", ".join(f"{k} {v['ms']:.4f} [{v['bound_ms']:.4f} {v['bound_by']}]" for k, v in split.items())
+          + f"; sum {total:.4f}; proj and LN2 as two launches: {apart['proj']:.4f} + "
+          f"{apart['layernorm']:.4f}", flush=True)
+    line = dict(shape=f"proj ({B * S}, {E}) -> {E} + residual + LN2", max_abs_err=errs[1][0],
+                ms=split["proj_layernorm"]["ms"],
+                plain_ms=cuda_ms(torch, lambda: vit_block_kernel.reference_proj_layer_norm(
+                    att, wproj, bproj, xp, g2, b2), 3),
+                bound_ms=split["proj_layernorm"]["bound_ms"], bound_by=split["proj_layernorm"]["bound_by"],
+                library_ms=None)
+    return {"split": split, "line": line}
+
+
+def launch_weight_saving(torch, label, blocks, make) -> float:
+    """The ms a request saves by keeping the blocks' launch-ready weights:
+    the re-cast of every block's weights, timed alone (CUDA events)."""
+    ms = cuda_ms(torch, lambda: [make(b) for b in blocks], 5)
+    print(f"{label}: re-casting the {len(blocks)} blocks' launch weights takes {ms:.4f} ms, which "
+          f"each request saves now that the blocks keep them", flush=True)
+    return ms
+
+
 def main() -> None:
     try:
         import torch
@@ -1160,6 +1538,7 @@ def main() -> None:
             attention_kernel, block_kernel, encoder_kernel, fps_kernel, knn_kernel, p3_kernel,
             quant_kernel, serial_block_kernel, vit_block_kernel,
         )
+        from pointvit_tpu_torch.ops import gemm_kernel
         from pointvit_tpu_torch.ops.gemm_kernel import gemm
         from pointvit_tpu_torch.ops.fps import fps_gather
         from pointvit_tpu_torch.ops.group import apf_group, p3_group
@@ -1250,10 +1629,42 @@ def main() -> None:
     p4p = pix4point_phase(torch, dev, _build)
     print(f"pix4point phase: {time.perf_counter() - t_p4p:.1f} s", flush=True)
 
+    # -- Pix4Point off the P3 kernel's shapes: 1000 and 1004 points ----------
+    t_off = time.perf_counter()
+    p4p_off_counts = p3_off_shape_phase(torch, dev, _build, p4p["model"])
+    print(f"pix4point off-shape phase: {time.perf_counter() - t_off:.1f} s", flush=True)
+
     # -- the fourth path: renderer (vit_b_16, 6 learned views) serving -------
     t_rend = time.perf_counter()
     rend = renderer_phase(torch, dev, _build)
     print(f"renderer phase: {time.perf_counter() - t_rend:.1f} s", flush=True)
+
+    # -- f32 models: APF slim2 and Pix4Point vit_small, bf16=False -----------
+    from pointvit_tpu_torch.models import build_model
+
+    t_f32 = time.perf_counter()
+    apf32 = f32_serving_phase(
+        torch, dev, _build, "APF slim2",
+        lambda impl: AdaptPointFormer(**apf_preset_config("slim2", dtype=torch.float32),
+                                      implementation=impl),
+        model.state_dict(), POINTS, SEED + 21,
+        ("fps", "knn", "group_encoder", "apf_block", "gemm_f32", "layernorm", "attention_any"))
+    p4p32 = f32_serving_phase(
+        torch, dev, _build, "Pix4Point vit_small",
+        lambda impl: build_model({**P4P_CONFIG, "bf16": False}, implementation=impl),
+        p4p["model"].state_dict(), P4P_POINTS, SEED + 22,
+        ("fps", "knn", "p3_embed", "vit_block", "gemm_f32", "layernorm", "pos_layernorm", "attention_any"))
+    print(f"f32 phase: {time.perf_counter() - t_f32:.1f} s", flush=True)
+
+    # -- a head dim 16 model: serving and training (f32) ---------------------
+    t_small = time.perf_counter()
+    small = small_model_phase(torch, dev, _build)
+    print(f"head dim 16 phase: {time.perf_counter() - t_small:.1f} s", flush=True)
+
+    # -- csrc/attention_any.cu at head dims 8, 16, 32, 128 -------------------
+    t_any = time.perf_counter()
+    attention_any_phase(torch, dev)
+    print(f"attention_any phase: {time.perf_counter() - t_any:.1f} s", flush=True)
 
     # -- each kernel against its plain version, at main-path shapes ----------
     def fps_phase(pts, S):
@@ -1394,6 +1805,16 @@ def main() -> None:
             plain_ms=cuda_ms(torch, lambda: vit_block_kernel.reference_vit_block(x0, w_vit, vh, pos0), 2),
             **bound(2.0 * Bp * Sp * mats + 4.0 * Bp * Sp * Sp * Ep,
                     nbytes(x0, pos0, vk, *w_vit)), library_ms=None)
+        results["proj_layernorm"] = vit_split(torch, x0, w_vit, vh, pos0)["line"]
+        vit_gemms = gemm_phase(torch, "ViT block", VIT_GEMMS, record_gemms(
+            vit_block_kernel, lambda: vit_block_kernel.fused_vit_block(x0, w_vit, vh, pos0)))
+        fc2 = vit_gemms[VIT_GEMMS.index("fc2")]
+        if fc2["instance"] != "pingpong":
+            fail(f"the ViT fc2 took the {fc2['instance']} instance, not the ping-pong one")
+        results["gemm_pingpong"] = dict(
+            shape=f"ViT fc2 {fc2['shape']}, bf16 residual", max_abs_err=fc2["max_abs_err"],
+            **{k: fc2[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+        del vit_gemms
 
         # The S=513 attention inside that block, alone.
         ln_p4p = layer_norm(x0 + pos0, vblk.norm1)
@@ -1436,6 +1857,8 @@ def main() -> None:
                 block_kernel, lambda: block_kernel.fused_apf_block(tokens, w_blk, heads))),
             "group encoder": gemm_phase(torch, "group encoder", ENCODER_GEMMS, record_gemms(
                 encoder_kernel, lambda: encoder_kernel.fused_group_encoder(x_enc, w_enc))),
+            "P3 stage": gemm_phase(torch, "P3 stage", P3_GEMMS, record_gemms(
+                p3_kernel, lambda: p3_kernel.fused_p3_embed(x_p3, w_p3))),
         }
         torch.cuda.synchronize()
         print(f"gemm phase: {time.perf_counter() - t_gemm:.1f} s", flush=True)
@@ -1568,6 +1991,83 @@ def main() -> None:
     print(f"S={Sx} phase: {time.perf_counter() - t_longer:.1f} s", flush=True)
     torch.cuda.synchronize()
 
+    # -- the f32 and any-head-dim kernels at the f32 Pix4Point's block 0 -----
+    with torch.inference_mode():
+        fblk = p4p32["block"]
+        xf = p4p32["tokens"].reshape(-1, p4p32["tokens"].shape[-1]).contiguous()
+        Mf, Ef = xf.shape
+        wf = vit_block_kernel.vit_block_weights(fblk, torch.float32)
+        a_f = layer_norm(xf, fblk.norm2).contiguous()
+        gk, _ = gemm(a_f, wf[8], wf[9], act="gelu", out_dtype=torch.float32)
+        gp, _ = gemm_kernel.reference_gemm(a_f, wf[8], wf[9], act="gelu", out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        d, r = rel_err(torch, gk, gp)
+        print(f"gemm_f32 fc1 ({Mf}, {Ef}) -> {wf[8].shape[0]} [GELU, f32 out]: max|d| / max|ref| "
+              f"{r:.3g} (bound {F32_REL_TOL:.3g})", flush=True)
+        if not r <= F32_REL_TOL:
+            fail("gemm_f32 disagrees with its plain version")
+        flops = 2.0 * Mf * wf[8].numel()
+        results["gemm_f32"] = dict(
+            shape=f"fc1 ({Mf}, {Ef}) -> {wf[8].shape[0]}, GELU", max_abs_err=d,
+            ms=cuda_ms(torch, lambda: gemm(a_f, wf[8], wf[9], act="gelu", out_dtype=torch.float32), 5),
+            plain_ms=cuda_ms(torch, lambda: gemm_kernel.reference_gemm(
+                a_f, wf[8], wf[9], act="gelu", out_dtype=torch.float32), 2),
+            **bound(flops, nbytes(a_f, wf[8], wf[9], gk), PEAK_F32),
+            library_ms=cuda_ms(torch, lambda: torch.nn.functional.linear(a_f, wf[8], wf[9]), 5))
+        del gk, gp
+        Bf = p4p32["tokens"].shape[0]
+        qkv_f = linear(layer_norm(p4p32["tokens"], fblk.norm1), fblk.attn.qkv).contiguous()
+        fh = fblk.num_heads
+        af = attention_kernel.mha_qkv(qkv_f, fh)
+        d = rel_err(torch, af, attention_kernel.reference_mha_qkv(qkv_f, fh))
+        print(f"attention_any f32 {tuple(qkv_f.shape)} heads {fh}: max|d| / max|ref| {d[1]:.3g} "
+              f"(bound {F32_REL_TOL:.3g})", flush=True)
+        if not d[1] <= F32_REL_TOL:
+            fail("attention_any (f32, the Pix4Point shape) disagrees with its plain version")
+        Sf = qkv_f.shape[1]
+        results["attention_any"] = dict(
+            shape=f"{tuple(qkv_f.shape)}, {fh} heads, f32", max_abs_err=d[0],
+            ms=cuda_ms(torch, lambda: attention_kernel.mha_qkv(qkv_f, fh), 3),
+            plain_ms=cuda_ms(torch, lambda: attention_kernel.reference_mha_qkv(qkv_f, fh), 2),
+            **bound(4.0 * Bf * Sf * Sf * Ef, nbytes(qkv_f, af), PEAK_F32))
+        q, k, v = heads_of(qkv_f, fh)
+        results["attention_any"]["library_ms"] = cuda_ms(torch, lambda: sdpa(q, k, v), 3)
+        gf = torch.randn(af.shape, generator=torch.Generator().manual_seed(SEED + 23)).to(dev)
+        dk1 = attention_kernel.mha_qkv_bwd(qkv_f, gf, fh)
+        d = rel_err(torch, dk1, attention_kernel.reference_mha_qkv_bwd(qkv_f, gf, fh))
+        print(f"attention_any_bwd f32 {tuple(qkv_f.shape)} heads {fh}: max|d| / max|ref| {d[1]:.3g} "
+              f"(bound {F32_REL_TOL:.3g})", flush=True)
+        if not d[1] <= F32_REL_TOL:
+            fail("attention_any_bwd (f32, the Pix4Point shape) disagrees with its plain version")
+        results["attention_any_bwd"] = dict(
+            shape=f"{tuple(qkv_f.shape)}, {fh} heads, f32", max_abs_err=d[0],
+            ms=cuda_ms(torch, lambda: attention_kernel.mha_qkv_bwd(qkv_f, gf, fh), 2),
+            plain_ms=cuda_ms(torch, lambda: attention_kernel.reference_mha_qkv_bwd(qkv_f, gf, fh), 1),
+            **bound(10.0 * Bf * Sf * Sf * Ef, nbytes(qkv_f, gf, dk1), PEAK_F32))
+        del dk1
+        # head dim 16: the small model's block 0 qkv, beside SDPA at D = 16
+        qs16 = small["qkv"]
+        a16_ms = cuda_ms(torch, lambda: attention_kernel.mha_qkv(qs16, 4), 10)
+        q16, k16, v16 = heads_of(qs16, 4)
+        s16_ms = cuda_ms(torch, lambda: sdpa(q16, k16, v16), 10)
+    q, k, v = (t.clone().requires_grad_() for t in (q, k, v))
+    out = sdpa(q, k, v)
+    go = gf.reshape(Bf, Sf, fh, -1).transpose(1, 2).contiguous().clone()
+    results["attention_any_bwd"]["library_ms"] = cuda_ms(
+        torch, lambda: torch.autograd.grad(out, (q, k, v), go, retain_graph=True), 2)
+    del q, k, v, out, go
+    print(f"time attention_any head dim 16 {tuple(qs16.shape)} x 4 heads (f32): kernel {a16_ms:.4f} ms, "
+          f"SDPA {s16_ms:.4f} ms", flush=True)
+    saved = {
+        "APF": launch_weight_saving(torch, "APF slim2", model.blocks, lambda b: block_kernel.apf_launch_weights(
+            block_kernel.apf_block_weights(b), torch.bfloat16, dev)),
+        "Pix4Point": launch_weight_saving(torch, "Pix4Point vit_small", vit.blocks,
+                                          lambda b: vit_block_kernel.vit_block_weights(b, torch.bfloat16)),
+        "renderer": launch_weight_saving(torch, "renderer vit_b_16", rend["model"].vit.encoder_layer,
+                                         lambda b: serial_block_kernel.serial_block_weights(b, torch.bfloat16)),
+    }
+    del saved
+
     def fmt(r, flops=None):
         lib = "none" if r.get("library_ms") is None else f"{r['library_ms']:.4f} ms"
         line = (f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
@@ -1585,7 +2085,8 @@ def main() -> None:
     for name, res in results.items():
         if name == "mha_qkv_bwd":
             continue  # printed below with the other backward shapes
-        flops = {"mha_qkv": attn_flops(qkv), "attn_block": 8.0 * B * G * E * E + 4.0 * B * G * G * E}
+        flops = {"mha_qkv": attn_flops(qkv), "attn_block": 8.0 * B * G * E * E + 4.0 * B * G * G * E,
+                 "attention_any": attn_flops(qkv_f), "attention_any_bwd": 2.5 * attn_flops(qkv_f)}
         print(f"time {name} at {res['shape']}: {fmt(res, flops.get(name))}", flush=True)
     print(f"time attention S=513 {tuple(qkv5.shape)} heads {vh}: {fmt(att513, attn_flops(qkv5))}",
           flush=True)
@@ -1607,7 +2108,8 @@ def main() -> None:
               f"{res['quantizer_ms']:.4f} ms; the bf16 GEMM kernel at this shape "
               f"{res['gemm_ms']:.4f} ms", flush=True)
     paths = (counts, train_counts, train_long_counts, p4p["counts"], rend["counts"], quant["counts"],
-             ab_counts, long["counts"], longer["counts"])
+             ab_counts, long["counts"], longer["counts"], p4p_off_counts, apf32["counts"],
+             p4p32["counts"], small["serve_counts"], small["train_counts"])
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(c.get(name, 0) for c in paths), **results[name]}

@@ -45,6 +45,7 @@ FLOAT = ctypes.c_float
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 _counters: dict[str, "LaunchCounter"] = {}
 
 
@@ -157,11 +158,15 @@ def build_kernels() -> float:
 
 def kernel(lib: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     """The C entry point ``symbol`` of ``csrc/<lib>.cu``, with its signature
-    declared (every pointer and the stream as ``c_void_p``)."""
-    build_kernels()
-    fn = getattr(_libs[lib], symbol)
-    fn.argtypes = list(argtypes)
-    fn.restype = INT
+    declared (every pointer and the stream as ``c_void_p``); looked up once,
+    since a short kernel's launch is bound by the host's time per call."""
+    fn = _fns.get((lib, symbol))
+    if fn is None:
+        build_kernels()
+        fn = getattr(_libs[lib], symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = INT
+        _fns[(lib, symbol)] = fn
     return fn
 
 

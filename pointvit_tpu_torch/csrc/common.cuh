@@ -20,6 +20,23 @@ extern "C" const char* pv_error_string(int err) {
 __device__ __forceinline__ float bf2f(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ bf16 f2bf(float v) { return __float2bfloat16_rn(v); }
 
+// Element i of a bf16 or f32 array as f32, and an f32 value rounded to T
+// (bf16 or f32): the kernels templated on their element type use these.
+__device__ __forceinline__ float ld(const bf16* p, size_t i) { return bf2f(p[i]); }
+__device__ __forceinline__ float ld(const float* p, size_t i) { return p[i]; }
+template <typename T>
+__device__ __forceinline__ T cvt(float v);
+template <>
+__device__ __forceinline__ bf16 cvt<bf16>(float v) { return f2bf(v); }
+template <>
+__device__ __forceinline__ float cvt<float>(float v) { return v; }
+// v rounded to T and read back as f32.
+template <typename T>
+__device__ __forceinline__ float rounded(float v) {
+  const T t = cvt<T>(v);
+  return ld(&t, 0);
+}
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }

@@ -71,8 +71,12 @@
 //     swizzled boxes that TMA stores, so the consumers move on before the
 //     bytes leave. But one block an SM cannot overlap the epilogue's own
 //     work with wgmma, so it is taken only where the main loop outweighs
-//     the epilogue: no pre output, no GELU, and a residual only for
-//     K >= 2048 (N % 8 == 0 and K >= 256 besides).
+//     the epilogue and N fills its tiles.
+// Two more bf16 instances follow below: a persistent ping-pong one (two
+// consumer warpgroups taking 128 x 128 tiles in turn, so one's epilogue
+// overlaps the other's wgmma) and the ViT block's proj + residual +
+// LayerNorm over whole 384-wide rows; and an f32 instance on CUDA cores.
+// The caller picks the instance (ops/gemm_kernel.py::gemm_instance).
 // No split-K and no atomics: two runs give the same bits.
 #include "common.cuh"
 #include "sm90.cuh"
@@ -154,6 +158,9 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t a, uint6
     wgmma_ss_n256(d, a, b);
   }
 }
+
+// Exact-erf GELU.
+__device__ __forceinline__ float gelu(float v) { return 0.5f * v * (1.f + erff(v * 0.7071067811865475f)); }
 
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
@@ -488,7 +495,7 @@ __global__ __launch_bounds__(kThreads, (Tile<BN>::kPersistent ? 1 : 2)) void gem
       for (int i = 0; i < BN / 2; ++i) acc[i] = fmaxf(acc[i], 0.f);
     } else if (p.act == 2) {
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.5f * acc[i] * (1.f + erff(acc[i] * 0.7071067811865475f));
+      for (int i = 0; i < BN / 2; ++i) acc[i] = gelu(acc[i]);
     }
     if (p.out) {
       if constexpr (T::kPersistent) {
@@ -546,18 +553,630 @@ int launch(const GemmArgs& p, const void* A, const void* W, cudaStream_t stream)
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the ping-pong instance ----
+//
+// Persistent and warp-specialised, for the products whose epilogue is heavy
+// beside a short K (GELU, residuals, a pre output): warpgroup 0 is the
+// producer (one warp issues TMA, setmaxnreg lowers its registers to 40);
+// warpgroups 1 and 2 are consumers (raised to 232 registers) that take the
+// block's output tiles in turn, each a whole 128 x 128 tile (two m64n128k16
+// accumulators, 128 floats a thread). While one consumer runs its epilogue
+// (bias, residual loads, GELU, the staging of its outputs for TMA stores),
+// the other issues wgmma on the next tile; named barriers hand the tensor
+// cores from one consumer to the other in tile order. The ring (five 32 KB
+// stages) is filled in tile order and each stage is drained by the one
+// consumer whose tile it holds. Outputs (and pre) leave through a 32 KB
+// staging area per consumer: two 16 KB boxes of 128 rows x 128 bytes,
+// 128-byte swizzled, stored by TMA; a consumer waits on its own stores'
+// reads only before it writes its staging area again. No group max.
+constexpr int kPPThreads = 384, kPPStages = 5;
+constexpr int kPPStageBytes = (BM + 128) * BK * 2;
+constexpr int kPPRing = kPPStages * kPPStageBytes;
+constexpr int kPPStaging = 32768;
+constexpr int kPPBarOff = kPPRing + 2 * kPPStaging;
+constexpr int kPPSmem = kPPBarOff + 16 * kPPStages;
+static_assert(kPPSmem + 1024 <= 232448, "the ping-pong block fits an SM");
+
+// The 128 threads of consumer c (named barrier 2 + c), and the barriers that
+// order the consumers' turns on the tensor cores (consumer c waits on 4 + c).
+__device__ __forceinline__ void pp_sync(int c) { asm volatile("bar.sync %0, 128;\n" ::"r"(2 + c) : "memory"); }
+__device__ __forceinline__ void pp_turn_wait(int c) { asm volatile("bar.sync %0, 256;\n" ::"r"(4 + c) : "memory"); }
+__device__ __forceinline__ void pp_turn_give(int c) { asm volatile("bar.arrive %0, 256;\n" ::"r"(4 + c) : "memory"); }
+
+// Columns 8 J0 .. 8 (J0 + JN) of consumer c's tile (32 KB of T) into its two
+// swizzled boxes, then stored by TMA from its leader thread. Row of acc[q]
+// half h: 64 q + wrow + 8 h.
+template <typename T, int J0, int JN>
+__device__ __forceinline__ void pp_store_cols(const float (&acc)[2][64], unsigned char* stage,
+                                              const CUtensorMap* map, int m0, int n0, int wrow, int t,
+                                              int c, bool leader) {
+  constexpr int kBoxCols = 128 / sizeof(T);
+  static_assert(JN * 8 * sizeof(T) == 256, "a pass fills the two boxes");
+  if (leader) bulk_wait_read();  // this consumer's earlier stores have read the area
+  pp_sync(c);
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 64 * q + wrow + 8 * h;
+#pragma unroll
+      for (int j = 0; j < JN; ++j) {
+        const int col = 8 * j + 2 * t;
+        const int off = (col % kBoxCols) * sizeof(T);
+        unsigned char* ptr = stage + (col / kBoxCols) * 16384 + r * 128 + (((off >> 4) ^ (r & 7)) << 4) + (off & 15);
+        const float a = acc[q][4 * (J0 + j) + 2 * h], b = acc[q][4 * (J0 + j) + 2 * h + 1];
+        if constexpr (sizeof(T) == 4) {
+          *reinterpret_cast<float2*>(ptr) = make_float2(a, b);
+        } else {
+          *reinterpret_cast<uint32_t*>(ptr) = pack_bf16(a, b);
+        }
+      }
+    }
+  }
+  fence_async_smem();
+  pp_sync(c);
+  if (leader) {
+    const uint32_t src = smem_addr(stage);
+    tma_store_2d(map, src, n0 + 8 * J0, m0);
+    tma_store_2d(map, src + 16384, n0 + 8 * J0 + kBoxCols, m0);
+    bulk_commit();
+  }
+}
+
+__global__ __launch_bounds__(kPPThreads, 1) void gemm_pp_kernel(
+    const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap wmap,
+    const __grid_constant__ CUtensorMap omap, const __grid_constant__ CUtensorMap premap,
+    const GemmArgs p) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = smem_addr(smem);
+  if (base & 1023) __trap();
+  const uint32_t full = base + kPPBarOff, empty = full + 8 * kPPStages;
+  const int n_tiles = (p.N + 127) / 128;
+  const int tiles = n_tiles * ((p.M + BM - 1) / BM);
+  const int KT = (p.K + BK - 1) / BK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kPPStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 128);  // the consumer whose tile the stage holds
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);  // warp-uniform
+  if (wg == 0) {  // the producer warpgroup: one warp issues, three idle
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int n0 = (tile % n_tiles) * 128, m0 = (tile / n_tiles) * BM;
+      if (p.res) {  // warm L2 with the tile's residual rows
+        const int es = p.res_f32 ? 4 : 2;
+        const int r_lo = m0 / p.res_div, r_hi = (min(m0 + BM, p.M) - 1) / p.res_div;
+        const uint32_t bytes = min(128, p.N - n0) * es;
+        for (int r = r_lo + lane; r <= r_hi; r += 32)
+          prefetch_l2(static_cast<const char*>(p.res) + ((size_t)r * p.N + n0) * es, bytes);
+      }
+      if (lane == 0) {
+        for (int kt = 0; kt < KT; ++kt, ++it) {
+          const int stage = it % kPPStages, round = it / kPPStages;
+          if (round > 0) mbar_wait(empty + 8 * stage, (round - 1) & 1);
+          const uint32_t slot = base + stage * kPPStageBytes, bar = full + 8 * stage;
+          mbar_expect_tx(bar, kPPStageBytes);
+          tma_load_2d(slot, &amap, bar, kt * BK, m0);
+          tma_load_2d(slot + BM * BK * 2, &wmap, bar, kt * BK, n0);
+        }
+      }
+      __syncwarp();
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int c = wg - 1;  // consumer 0 or 1
+  const int tid = threadIdx.x - 128 * wg;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int wrow = (tid >> 5) * 16 + g;  // tile row of acc[0] half 0
+  const bool leader = tid == 0;
+  unsigned char* stage_area = smem + kPPRing + c * kPPStaging;
+  int j = c;  // the tile's index in this block's sequence
+  for (int tile = blockIdx.x + c * gridDim.x; tile < tiles; tile += 2 * gridDim.x, j += 2) {
+    const int n0 = (tile % n_tiles) * 128, m0 = (tile / n_tiles) * BM;
+    float acc[2][64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[0][i] = acc[1][i] = 0.f;
+    if (j > 0) pp_turn_wait(c);  // the other consumer has issued the previous tile's products
+    int it = j * KT;  // the ring holds every tile's K steps in order
+    for (int kt = 0; kt < KT; ++kt, ++it) {
+      const int stage = it % kPPStages;
+      mbar_wait(full + 8 * stage, (it / kPPStages) & 1);
+      const uint32_t a = base + stage * kPPStageBytes;
+      const uint32_t b = a + BM * BK * 2;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        wgmma_ss_n128(acc[0], desc_kmajor(a + 32 * kk), desc_kmajor(b + 32 * kk), 1);
+        wgmma_ss_n128(acc[1], desc_kmajor(a + 64 * 128 + 32 * kk), desc_kmajor(b + 32 * kk), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (kt > 0) mbar_arrive(empty + 8 * ((it - 1) % kPPStages));
+    }
+    if (tile + gridDim.x < tiles) pp_turn_give(1 - c);  // the next tile is the other consumer's
+    wgmma_wait<0>();
+    reg_fence(acc[0]);
+    reg_fence(acc[1]);
+    mbar_arrive(empty + 8 * ((it - 1) % kPPStages));
+
+    // The epilogue, on the accumulators in registers.
+    if (p.bias) {
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj) {
+        const int col = n0 + 8 * jj + 2 * t;
+        float b0 = 0.f, b1 = 0.f;
+        if (col < p.N) load_pair(p.bias, col, true, b0, b1);
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          acc[q][4 * jj] += b0;
+          acc[q][4 * jj + 1] += b1;
+          acc[q][4 * jj + 2] += b0;
+          acc[q][4 * jj + 3] += b1;
+        }
+      }
+    }
+    if (p.pre) pp_store_cols<bf16, 0, 16>(acc, stage_area, &premap, m0, n0, wrow, t, c, leader);
+    if (p.res) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int gr = m0 + 64 * q + wrow + 8 * h;
+          if (gr >= p.M) continue;
+          const size_t row = (size_t)(gr / p.res_div) * p.N;
+#pragma unroll
+          for (int jj = 0; jj < 16; ++jj) {
+            const int col = n0 + 8 * jj + 2 * t;
+            if (col >= p.N) continue;
+            float r0 = 0.f, r1 = 0.f;
+            if (p.res_f32) {
+              load_pair(static_cast<const float*>(p.res), row + col, true, r0, r1);
+            } else {
+              load_pair(static_cast<const bf16*>(p.res), row + col, true, r0, r1);
+            }
+            acc[q][4 * jj + 2 * h] += p.res_scale * r0;
+            acc[q][4 * jj + 2 * h + 1] += p.res_scale * r1;
+          }
+        }
+      }
+    }
+    if (p.act == 1) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        acc[0][i] = fmaxf(acc[0][i], 0.f);
+        acc[1][i] = fmaxf(acc[1][i], 0.f);
+      }
+    } else if (p.act == 2) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        acc[0][i] = gelu(acc[0][i]);
+        acc[1][i] = gelu(acc[1][i]);
+      }
+    }
+    if (p.out) {
+      if (p.out_f32) {
+        pp_store_cols<float, 0, 8>(acc, stage_area, &omap, m0, n0, wrow, t, c, leader);
+        pp_store_cols<float, 8, 8>(acc, stage_area, &omap, m0, n0, wrow, t, c, leader);
+      } else {
+        pp_store_cols<bf16, 0, 16>(acc, stage_area, &omap, m0, n0, wrow, t, c, leader);
+      }
+    }
+  }
+  if (leader) bulk_wait_all();  // the staging area outlives the stores that read it
+}
+
+// ---- the proj + LayerNorm instance: whole rows of width 384 ----
+//
+// The ViT block's proj with its residual, x1 = bf16(att . Wp^T + bp + xp),
+// and the LayerNorm after it, y = LN(x1), in one launch (the pos-LayerNorm
+// of csrc/block.cu writes xp and LN1(xp) the same way): it drops the LN2
+// launch and its read of x1. A tile is 64 rows x all 384 columns: one
+// consumer warpgroup with a m64n256k16 and a m64n128k16 accumulator (192
+// floats a thread), fed by TMA from a producer warp through a ring of
+// three 56 KB stages; the tile's residual rows come by TMA into a 48 KB
+// buffer of their own, and bias, gamma and beta sit in shared memory, so
+// the epilogue waits on no device-memory load. Persistent over row tiles:
+// the producer loads the next tile while the consumers run the epilogue.
+// One block an SM of five warps: 192 accumulators need more registers than
+// a block of 288 threads gets (an SM sub-partition holds 16 K registers,
+// and a ninth warp puts three warps on one). A row lies in one quad of one
+// warp (lanes 4 g .. 4 g + 3), so its mean and variance reduce by two
+// shuffles, in f32, over the bf16-rounded x1, as csrc/block.cu's LayerNorm
+// computes them. x1 and y leave straight from the registers.
+constexpr int kLnN = 384, kLnM = 64, kLnThreads = 160, kLnStages = 3;
+constexpr int kLnStageBytes = (kLnM + kLnN) * BK * 2;  // 56 KB: A 64 rows, W 384 rows
+constexpr int kLnResOff = kLnStages * kLnStageBytes;   // the residual: six 8 KB boxes
+constexpr int kLnParOff = kLnResOff + kLnM * kLnN * 2;  // bias, gamma, beta as f32
+constexpr int kLnBarOff = kLnParOff + 3 * kLnN * 4;     // full, empty, res full, res empty
+constexpr int kLnSmem = kLnBarOff + 16 * kLnStages + 16;
+static_assert(kLnStageBytes % 1024 == 0 && kLnResOff % 1024 == 0, "swizzled tiles on 1024-byte boundaries");
+static_assert(kLnSmem + 1024 <= 232448, "the proj + LayerNorm block fits an SM");
+
+struct GemmLnArgs {
+  const bf16 *bias, *gamma, *beta;
+  bf16 *out, *y;
+  int M, K;
+  float eps;
+};
+
+__global__ __launch_bounds__(kLnThreads, 1) void gemm_ln_kernel(const __grid_constant__ CUtensorMap amap,
+                                                                const __grid_constant__ CUtensorMap wmap,
+                                                                const __grid_constant__ CUtensorMap rmap,
+                                                                const GemmLnArgs p) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = smem_addr(smem);
+  if (base & 1023) __trap();
+  const uint32_t full = base + kLnBarOff, empty = full + 8 * kLnStages;
+  const uint32_t rfull = empty + 8 * kLnStages, rempty = rfull + 8;
+  float* par = reinterpret_cast<float*>(smem + kLnParOff);
+  const int tiles = (p.M + kLnM - 1) / kLnM, KT = (p.K + BK - 1) / BK;
+  for (int c = threadIdx.x; c < kLnN; c += kLnThreads) {
+    par[c] = bf2f(p.bias[c]);
+    par[kLnN + c] = bf2f(p.gamma[c]);
+    par[2 * kLnN + c] = bf2f(p.beta[c]);
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kLnStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 128);
+    }
+    mbar_init(rfull, 1);
+    mbar_init(rempty, 128);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);  // warp-uniform
+  if (role == 1) {  // the producer warp
+    if ((threadIdx.x & 31) == 0) {
+      int it = 0, j = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++j) {
+        for (int kt = 0; kt < KT; ++kt, ++it) {
+          const int stage = it % kLnStages, round = it / kLnStages;
+          if (round > 0) mbar_wait(empty + 8 * stage, (round - 1) & 1);
+          const uint32_t slot = base + stage * kLnStageBytes, bar = full + 8 * stage;
+          mbar_expect_tx(bar, kLnStageBytes);
+          tma_load_2d(slot, &amap, bar, kt * BK, tile * kLnM);
+          for (int part = 0; part < 3; ++part)  // W rows 128 at a time
+            tma_load_2d(slot + kLnM * BK * 2 + part * 128 * BK * 2, &wmap, bar, kt * BK, 128 * part);
+        }
+        if (j > 0) mbar_wait(rempty, (j - 1) & 1);  // the last tile's epilogue has read its residual
+        mbar_expect_tx(rfull, kLnM * kLnN * 2);
+        for (int box = 0; box < kLnN / 64; ++box)
+          tma_load_2d(base + kLnResOff + box * kLnM * 128, &rmap, rfull, 64 * box, tile * kLnM);
+      }
+    }
+    return;
+  }
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = (threadIdx.x >> 5) * 16 + g;  // tile row of half 0; half 1 is r0 + 8
+  const unsigned char* rbuf = smem + kLnResOff;
+  int it = 0, j = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++j) {
+    const int m0 = tile * kLnM;
+    float acc0[128], acc1[64];  // columns 0-255, 256-383
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc0[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc1[i] = 0.f;
+    for (int kt = 0; kt < KT; ++kt, ++it) {
+      const int stage = it % kLnStages;
+      mbar_wait(full + 8 * stage, (it / kLnStages) & 1);
+      const uint32_t a = base + stage * kLnStageBytes;
+      const uint32_t b = a + kLnM * BK * 2;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        wgmma_ss_n256(acc0, desc_kmajor(a + 32 * kk), desc_kmajor(b + 32 * kk));
+        wgmma_ss_n128(acc1, desc_kmajor(a + 32 * kk), desc_kmajor(b + 256 * 128 + 32 * kk), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (kt > 0) mbar_arrive(empty + 8 * ((it - 1) % kLnStages));
+    }
+    wgmma_wait<0>();
+    reg_fence(acc0);
+    reg_fence(acc1);
+    mbar_arrive(empty + 8 * ((it - 1) % kLnStages));
+
+    // x1 = bf16(acc + bias + res), kept as its f32 value for the LayerNorm.
+    // acc0[4 j + 2 h + e] is column 8 j + 2 t + e (j < 32), acc1's column
+    // 256 + 8 j + 2 t + e (j < 16); row r0 + 8 h.
+    mbar_wait(rfull, j & 1);
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rr = r0 + 8 * h, gr = m0 + rr;
+      const bool live = gr < p.M;
+#pragma unroll
+      for (int jj = 0; jj < 48; ++jj) {
+        float& v0 = jj < 32 ? acc0[4 * jj + 2 * h] : acc1[4 * (jj - 32) + 2 * h];
+        float& v1 = jj < 32 ? acc0[4 * jj + 2 * h + 1] : acc1[4 * (jj - 32) + 2 * h + 1];
+        const int col = 8 * jj + 2 * t, cc = col % 64;  // the residual's box col / 64, 128-byte swizzled
+        const __nv_bfloat162 res = *reinterpret_cast<const __nv_bfloat162*>(
+            rbuf + (col / 64) * (kLnM * 128) + rr * 128 + (((cc >> 3) ^ (rr & 7)) << 4) + (cc & 7) * 2);
+        const uint32_t packed = pack_bf16(v0 + par[col] + __low2float(res), v1 + par[col + 1] + __high2float(res));
+        if (live) *reinterpret_cast<uint32_t*>(p.out + (size_t)gr * kLnN + col) = packed;
+        const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(&packed);
+        v0 = __low2float(r);
+        v1 = __high2float(r);
+        sum[h] += v0 + v1;
+      }
+    }
+    mbar_arrive(rempty);
+    float mu[2], rstd[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // the row's four lanes hold all its columns
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+      mu[h] = sum[h] / kLnN;
+      float q = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 48; ++jj) {
+        const float d0 = (jj < 32 ? acc0[4 * jj + 2 * h] : acc1[4 * (jj - 32) + 2 * h]) - mu[h];
+        const float d1 = (jj < 32 ? acc0[4 * jj + 2 * h + 1] : acc1[4 * (jj - 32) + 2 * h + 1]) - mu[h];
+        q += d0 * d0 + d1 * d1;
+      }
+      q += __shfl_xor_sync(0xffffffffu, q, 1);
+      q += __shfl_xor_sync(0xffffffffu, q, 2);
+      rstd[h] = rsqrtf(q / kLnN + p.eps);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gr = m0 + r0 + 8 * h;
+      if (gr >= p.M) continue;
+      bf16* yr = p.y + (size_t)gr * kLnN;
+#pragma unroll
+      for (int jj = 0; jj < 48; ++jj) {
+        const float v0 = jj < 32 ? acc0[4 * jj + 2 * h] : acc1[4 * (jj - 32) + 2 * h];
+        const float v1 = jj < 32 ? acc0[4 * jj + 2 * h + 1] : acc1[4 * (jj - 32) + 2 * h + 1];
+        const int col = 8 * jj + 2 * t;
+        *reinterpret_cast<uint32_t*>(yr + col) =
+            pack_bf16((v0 - mu[h]) * rstd[h] * par[kLnN + col] + par[2 * kLnN + col],
+                      (v1 - mu[h]) * rstd[h] * par[kLnN + col + 1] + par[2 * kLnN + col + 1]);
+      }
+    }
+  }
+}
+
+// ---- the f32 instance: CUDA cores ----
+//
+// For the f32 models (build_model(..., "bf16": False)): every operand and
+// output f32, products in full f32 on the CUDA cores, as torch.matmul
+// computes an f32 product by default. Bound by operations at 67 TFLOP/s,
+// the H100's f32 rate outside the tensor cores. A 128 x 128 tile a block of
+// 256 threads, each thread an 8 x 8 register tile (rows 4 ty .. 4 ty + 3
+// and 64 + 4 ty .., columns 4 tx .. and 64 + 4 tx ..: float4 reads of
+// shared memory); 16-deep K steps double-buffered in shared memory, the next
+// step's loads held in registers while this one computes. The epilogue is
+// the bf16 kernel's, on the thread's 64 values: bias, pre, residual
+// (res_scale, res_div), ReLU or GELU, out, the group max (groups above a
+// thread's 4 rows meet through shared memory). One rounding per output, no
+// split-K: two runs give the same bits.
+constexpr int FBM = 128, FBN = 128, FBK = 16, FPAD = 4, kF32Threads = 256;
+
+struct GemmF32Args {
+  const float* A;
+  const float* W;
+  const float* bias;
+  const float* res;
+  float* out;
+  float* pre;
+  float* gmax;
+  int M, N, K, res_div, group, act;
+  float res_scale;
+};
+
+// Rows [r0, r0 + 128) of X (rows, K), columns [k0, k0 + 16): thread tid
+// loads rows tid / 4 and tid / 4 + 64, columns 4 (tid % 4) .. + 3; zeros
+// outside the tensor (K % 4 == 0, so a float4 lies wholly inside or outside).
+__device__ __forceinline__ void f32_load(const float* X, int rows, int K, int r0, int k0, float4 (&v)[2]) {
+  const int c = k0 + 4 * (threadIdx.x & 3);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + (threadIdx.x >> 2) + 64 * h;
+    v[h] = (r < rows && c < K) ? *reinterpret_cast<const float4*>(X + (size_t)r * K + c)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+// ... stored transposed: s[k][row], rows padded by FPAD.
+__device__ __forceinline__ void f32_store(float* s, const float4 (&v)[2]) {
+  const int k = 4 * (threadIdx.x & 3);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = (threadIdx.x >> 2) + 64 * h;
+    s[(k + 0) * (FBM + FPAD) + r] = v[h].x;
+    s[(k + 1) * (FBM + FPAD) + r] = v[h].y;
+    s[(k + 2) * (FBM + FPAD) + r] = v[h].z;
+    s[(k + 3) * (FBM + FPAD) + r] = v[h].w;
+  }
+}
+
+__global__ __launch_bounds__(kF32Threads) void gemm_f32_kernel(const GemmF32Args p) {
+  __shared__ __align__(16) float As[2][FBK * (FBM + FPAD)];
+  __shared__ __align__(16) float Ws[2][FBK * (FBN + FPAD)];
+  const int n_tiles = (p.N + FBN - 1) / FBN;
+  const int n0 = (blockIdx.x % n_tiles) * FBN, m0 = (blockIdx.x / n_tiles) * FBM;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  float4 av[2], wv[2];
+  f32_load(p.A, p.M, p.K, m0, 0, av);
+  f32_load(p.W, p.N, p.K, n0, 0, wv);
+  f32_store(As[0], av);
+  f32_store(Ws[0], wv);
+  __syncthreads();
+  const int KT = (p.K + FBK - 1) / FBK;
+  for (int kt = 0; kt < KT; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < KT) {  // the next step's loads fly while this one computes
+      f32_load(p.A, p.M, p.K, m0, (kt + 1) * FBK, av);
+      f32_load(p.W, p.N, p.K, n0, (kt + 1) * FBK, wv);
+    }
+#pragma unroll
+    for (int k = 0; k < FBK; ++k) {
+      const float* ar = As[buf] + k * (FBM + FPAD);
+      const float* wr = Ws[buf] + k * (FBN + FPAD);
+      const float4 a0 = *reinterpret_cast<const float4*>(ar + 4 * ty);
+      const float4 a1 = *reinterpret_cast<const float4*>(ar + 64 + 4 * ty);
+      const float4 b0 = *reinterpret_cast<const float4*>(wr + 4 * tx);
+      const float4 b1 = *reinterpret_cast<const float4*>(wr + 64 + 4 * tx);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    if (kt + 1 < KT) {
+      f32_store(As[buf ^ 1], av);
+      f32_store(Ws[buf ^ 1], wv);
+    }
+    __syncthreads();
+  }
+
+  // The epilogue. Row i of the thread: 4 ty + i (i < 4) or 64 + 4 ty + i - 4.
+  auto row_of = [&](int i) { return m0 + (i < 4 ? 4 * ty + i : 60 + 4 * ty + i); };
+  auto col_of = [&](int j) { return n0 + (j < 4 ? 4 * tx + j : 60 + 4 * tx + j); };
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = row_of(i);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = col_of(j);
+      if (r >= p.M || c >= p.N) continue;
+      float v = acc[i][j];
+      if (p.bias) v += p.bias[c];
+      if (p.pre) p.pre[(size_t)r * p.N + c] = v;
+      if (p.res) v += p.res_scale * p.res[(size_t)(r / p.res_div) * p.N + c];
+      if (p.act == 1) {
+        v = fmaxf(v, 0.f);
+      } else if (p.act == 2) {
+        v = gelu(v);
+      }
+      if (p.out) p.out[(size_t)r * p.N + c] = v;
+      acc[i][j] = v;
+    }
+  }
+  if (!p.gmax) return;
+  const int G = p.group;  // a power of two that divides 128 and M
+  if (G <= 4) {  // whole groups within a thread's 4 consecutive rows
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = row_of(i);
+      if (r % G || r >= p.M) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = col_of(j);
+        if (c >= p.N) continue;
+        float m = acc[i][j];
+#pragma unroll
+        for (int e = 1; e < 4; ++e) {  // fixed bounds: acc stays in registers
+          if (e < G && i + e < 8) m = fmaxf(m, acc[i + e][j]);
+        }
+        p.gmax[(size_t)(r / G) * p.N + c] = m;
+      }
+    }
+    return;
+  }
+  // Chunk q (rows 4 q .. 4 q + 3 of the tile): the thread's max over them.
+  float* red = &As[0][0];  // 32 chunks x 128 columns = 16 KB of the 17 KB buffer
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int q = 16 * h + ty;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float m = acc[4 * h][j];
+#pragma unroll
+      for (int e = 1; e < 4; ++e) m = fmaxf(m, acc[4 * h + e][j]);
+      red[q * FBN + (j < 4 ? 4 * tx + j : 60 + 4 * tx + j)] = m;
+    }
+  }
+  __syncthreads();
+  const int per = G / 4;  // chunks per group
+  for (int i = threadIdx.x; i < (FBM / G) * FBN; i += kF32Threads) {
+    const int gi = i / FBN, c = i % FBN;
+    const int r = m0 + gi * G;
+    if (r >= p.M || n0 + c >= p.N) continue;
+    float m = red[gi * per * FBN + c];
+    for (int q = 1; q < per; ++q) m = fmaxf(m, red[(gi * per + q) * FBN + c]);
+    p.gmax[(size_t)(r / G) * p.N + n0 + c] = m;
+  }
+}
+
+int launch_pp(const GemmArgs& p, const void* A, const void* W, cudaStream_t stream) {
+  // first: binds the context the tensor maps need
+  cudaFuncSetAttribute(gemm_pp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kPPSmem);
+  const uint64_t adims[2] = {(uint64_t)p.K, (uint64_t)p.M}, wdims[2] = {(uint64_t)p.K, (uint64_t)p.N};
+  const uint64_t strides[1] = {(uint64_t)p.K * 2};
+  CUtensorMap amap, wmap, omap = {}, premap = {};
+  if (!pv_tensor_map(&amap, A, 2, adims, strides, BM) || !pv_tensor_map(&wmap, W, 2, wdims, strides, 128)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const uint64_t odims[2] = {(uint64_t)p.N, (uint64_t)p.M};
+  if (p.out) {  // boxes of 128 rows x 128 bytes
+    const int es = p.out_f32 ? 4 : 2;
+    const uint64_t ostr[1] = {(uint64_t)p.N * es};
+    if (!pv_tensor_map_of(&omap, p.out_f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                          p.out, 2, odims, ostr, 128 / es, BM)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (p.pre) {
+    const uint64_t pstr[1] = {(uint64_t)p.N * 2};
+    if (!pv_tensor_map_of(&premap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p.pre, 2, odims, pstr, 64, BM)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  const int tiles = ((p.N + 127) / 128) * ((p.M + BM - 1) / BM);
+  gemm_pp_kernel<<<std::min(tiles, sm_count()), kPPThreads, kPPSmem, stream>>>(amap, wmap, omap, premap, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_ln(const GemmLnArgs& p, const void* A, const void* W, const void* res, cudaStream_t stream) {
+  // first: binds the context the tensor maps need
+  cudaFuncSetAttribute(gemm_ln_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kLnSmem);
+  const uint64_t adims[2] = {(uint64_t)p.K, (uint64_t)p.M}, wdims[2] = {(uint64_t)p.K, (uint64_t)kLnN};
+  const uint64_t rdims[2] = {(uint64_t)kLnN, (uint64_t)p.M};
+  const uint64_t strides[1] = {(uint64_t)p.K * 2}, rstrides[1] = {(uint64_t)kLnN * 2};
+  CUtensorMap amap, wmap, rmap;
+  if (!pv_tensor_map(&amap, A, 2, adims, strides, kLnM) || !pv_tensor_map(&wmap, W, 2, wdims, strides, 128) ||
+      !pv_tensor_map(&rmap, res, 2, rdims, rstrides, kLnM)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int tiles = (p.M + kLnM - 1) / kLnM;
+  gemm_ln_kernel<<<std::min(tiles, sm_count()), kLnThreads, kLnSmem, stream>>>(amap, wmap, rmap, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // A (M, K), W (N, K), bias (N,) bf16; res (M / res_div, N) bf16 or f32; out
 // (M, N) bf16 or f32; pre (M, N) bf16; gmax (M / group, N) bf16; all
 // contiguous, 16-byte aligned, K % 8 == 0 (TMA's 16-byte row stride), group
-// a power of two that divides 128 and M.
+// a power of two that divides 128 and M. `instance` (the caller picks it,
+// ops/gemm_kernel.py): 64 or 128 (two blocks an SM, that tile width), 256
+// (persistent 128 x 256; N % 8 == 0), 1 (ping-pong; N % 8 == 0, no gmax).
 extern "C" int pv_gemm(const void* A, const void* W, const void* bias, const void* res, int res_div,
                        int res_f32, float res_scale, void* out, int out_f32, void* pre, void* gmax,
-                       int group, int M, int N, int K, int act, void* stream) {
+                       int group, int M, int N, int K, int act, int instance, void* stream) {
   if (M < 1 || N < 1 || K < 1 || K % 8 || res_div < 1 || (gmax && (group < 1 || BM % group))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if ((instance == 256 || instance == 1) && N % 8) return static_cast<int>(cudaErrorInvalidValue);
+  if ((instance == 256 && pre) || (instance == 1 && gmax)) return static_cast<int>(cudaErrorInvalidValue);
   GemmArgs p;
   p.bias = static_cast<const bf16*>(bias);
   p.res = res;
@@ -574,10 +1193,65 @@ extern "C" int pv_gemm(const void* A, const void* W, const void* bias, const voi
   p.act = act;
   p.res_scale = res_scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (N <= 64) return launch<64>(p, A, W, s);
-  // The persistent instance where the main loop outweighs an epilogue that
-  // its one block an SM cannot overlap: no pre output, no GELU, and a
-  // residual only under a long K.
-  const bool light = !pre && act != 2 && (!res || K >= 2048);
-  return (N % 8 == 0 && K >= 256 && light) ? launch<256>(p, A, W, s) : launch<128>(p, A, W, s);
+  switch (instance) {
+    case 64:
+      return launch<64>(p, A, W, s);
+    case 128:
+      return launch<128>(p, A, W, s);
+    case 256:
+      return launch<256>(p, A, W, s);
+    case 1:
+      return launch_pp(p, A, W, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The f32 instance: A (M, K), W (N, K), bias (N,), res (M / res_div, N),
+// out, pre (M, N), gmax (M / group, N), all f32, contiguous, 16-byte
+// aligned; K % 4 == 0; group a power of two that divides 128 and M.
+extern "C" int pv_gemm_f32(const void* A, const void* W, const void* bias, const void* res,
+                           int res_div, float res_scale, void* out, void* pre, void* gmax, int group,
+                           int M, int N, int K, int act, void* stream) {
+  if (M < 1 || N < 1 || K < 1 || K % 4 || res_div < 1 || (gmax && (group < 1 || FBM % group))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  GemmF32Args p;
+  p.A = static_cast<const float*>(A);
+  p.W = static_cast<const float*>(W);
+  p.bias = static_cast<const float*>(bias);
+  p.res = static_cast<const float*>(res);
+  p.out = static_cast<float*>(out);
+  p.pre = static_cast<float*>(pre);
+  p.gmax = static_cast<float*>(gmax);
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  p.res_div = res_div;
+  p.group = group;
+  p.act = act;
+  p.res_scale = res_scale;
+  const long tiles = (long)((N + FBN - 1) / FBN) * ((M + FBM - 1) / FBM);
+  gemm_f32_kernel<<<tiles, kF32Threads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The proj + LayerNorm instance: out = bf16(A . W^T + bias + res) and y =
+// LN(out) with gamma, beta and eps; A (M, K), W (384, K), res, out, y (M,
+// 384), bias, gamma, beta (384,), all bf16, contiguous, 16-byte aligned;
+// K % 8 == 0.
+extern "C" int pv_gemm_ln(const void* A, const void* W, const void* bias, const void* res,
+                          const void* gamma, const void* beta, void* out, void* y, float eps, int M, int N,
+                          int K, void* stream) {
+  if (M < 1 || N != kLnN || K < 1 || K % 8) return static_cast<int>(cudaErrorInvalidValue);
+  GemmLnArgs p;
+  p.bias = static_cast<const bf16*>(bias);
+  p.gamma = static_cast<const bf16*>(gamma);
+  p.beta = static_cast<const bf16*>(beta);
+  p.out = static_cast<bf16*>(out);
+  p.y = static_cast<bf16*>(y);
+  p.M = M;
+  p.K = K;
+  p.eps = eps;
+  return launch_ln(p, A, W, res, static_cast<cudaStream_t>(stream));
 }

@@ -125,8 +125,9 @@ class P3Embed(nn.Module):
     chain on the card) where the JAX package takes its fused stage:
     ``layers == 4`` and B·S % 16 == 0 (``nn/pointnet.py:168-186``).
     ``implementation='torch'`` runs the fused stage's plain version. Any
-    other shape runs :meth:`stage_unfused` (eval-mode BN, eps 1e-5), which
-    a CUDA tensor on the kernel path refuses rather than run plain code.
+    other shape runs :meth:`stage_unfused` (eval-mode BN, eps 1e-5) on
+    either device, as the JAX stage runs its unfused stack there
+    (``nn/pointnet.py:166-186``): one cloud of 1000 points (S = 250) does.
     FPS starts at point 0; training is not ported yet.
     """
 
@@ -168,10 +169,6 @@ class P3Embed(nn.Module):
         if self.layers == 4 and (B * S) % 16 == 0:
             stage = reference_folded_p3 if self.implementation == "torch" else fused_p3_embed
             return centers, stage(x.reshape(B * S, K, C), fold_p3_stage_params(self)).reshape(B, S, -1)
-        if x.is_cuda and self.implementation is None:
-            raise ValueError(
-                f"the P3 stage kernel takes layers == 4 and B*S % 16 == 0; got layers "
-                f"{self.layers}, B*S {B * S} (implementation='torch' runs it plain)")
         return centers, self.stage_unfused(x)
 
     def stage_unfused(self, x: torch.Tensor) -> torch.Tensor:

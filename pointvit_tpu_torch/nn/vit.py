@@ -22,6 +22,11 @@ head dim 64, S ≤ 1024), as the JAX block leaves its fused kernel there
 (``nn/vit.py:53-75``); its attention kernel takes any S. ``ViTBlock`` and
 ``SerialAdapterBlock`` leave their fused chains outside that gate too, for
 an unfused forward through their layer modules.
+
+Each block keeps the weights its kernel chain launches with (cast to the
+compute dtype, for APF also folded and transposed) and makes them anew only
+when a parameter changes, as ``QuantLinear`` keeps its int8 weight: an
+in-place update bumps the parameter's version, a move changes its storage.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from pointvit_tpu_torch.ops.block_kernel import (
     LN_EPS,
     apf_block_shapes_ok,
     apf_block_weights,
+    apf_launch_weights,
     fused_apf_block,
     reference_apf_block,
 )
@@ -59,6 +65,26 @@ from pointvit_tpu_torch.ops.vit_block_kernel import (
 )
 
 __all__ = ["APFBlock", "ViTBlock", "SerialAdapterBlock", "PatchifyDense", "ImageViT"]
+
+
+class LaunchWeights:
+    """A block's launch-ready weights, made by ``make`` once and kept until
+    one of the block's parameters changes (its version or storage) or the
+    key (dtype, device) differs. Parameters made under ``inference_mode``
+    have no version to key on: then the weights are made on every call."""
+
+    def __init__(self) -> None:
+        self._key = None
+        self._value = None
+
+    def get(self, module: nn.Module, make, *key):
+        params = tuple(module.parameters())
+        if any(p.is_inference() for p in params):
+            return make()
+        key = (key, tuple((p._version, p.data_ptr()) for p in params))
+        if key != self._key:
+            self._key, self._value = key, make()
+        return self._value
 
 
 class APFBlock(nn.Module):
@@ -87,6 +113,7 @@ class APFBlock(nn.Module):
         self.mlp = Mlp(dim, 4 * dim, quantized, implementation)
         self.adapter = AdapterLayer(dim, adapter_bottleneck, dropout_rate)
         self.drop_path = DropPath(drop_path_rate)
+        self._launch = LaunchWeights()
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
                 generator: torch.Generator | None = None) -> torch.Tensor:
@@ -97,7 +124,11 @@ class APFBlock(nn.Module):
         weights = apf_block_weights(self)
         if self.implementation == "torch":
             return reference_apf_block(x, weights, self.num_heads)
-        return fused_apf_block(x, weights, self.num_heads)
+        ready = None
+        if x.is_cuda:
+            ready = self._launch.get(self, lambda: apf_launch_weights(weights, x.dtype, x.device),
+                                     x.dtype, x.device)
+        return fused_apf_block(x, weights, self.num_heads, ready)
 
     def forward_unfused(self, x: torch.Tensor, *, train: bool = False,
                         generator: torch.Generator | None = None) -> torch.Tensor:
@@ -141,6 +172,7 @@ class ViTBlock(nn.Module):
         self.attn = Attention(dim, num_heads, implementation=implementation)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self._launch = LaunchWeights()
 
     def forward(self, x: torch.Tensor, *, pos: torch.Tensor | None = None,
                 train: bool = False) -> torch.Tensor:
@@ -154,7 +186,7 @@ class ViTBlock(nn.Module):
             pos = pos.to(self.dtype)
         if not vit_block_shapes_ok(*x.shape[-2:], self.num_heads):
             return self.forward_unfused(x, pos=pos)
-        weights = vit_block_weights(self, self.dtype)
+        weights = self._launch.get(self, lambda: vit_block_weights(self, self.dtype), self.dtype)
         if self.implementation == "torch":
             return reference_vit_block(x, weights, self.num_heads, pos)
         return fused_vit_block(x, weights, self.num_heads, pos)
@@ -206,6 +238,7 @@ class SerialAdapterBlock(nn.Module):
         self.ln_2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
         self.adapter2 = SimpleAdapter(dim, adapter_bottleneck)
+        self._launch = LaunchWeights()
 
     def forward(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
         """(B, S, E) → (B, S, E) in the block's dtype."""
@@ -215,7 +248,7 @@ class SerialAdapterBlock(nn.Module):
         x = x.to(self.dtype)
         if not serial_block_shapes_ok(*x.shape[-2:], self.num_heads):
             return self.forward_unfused(x)
-        weights = serial_block_weights(self, self.dtype)
+        weights = self._launch.get(self, lambda: serial_block_weights(self, self.dtype), self.dtype)
         if self.implementation == "torch":
             return reference_serial_block(x, weights, self.num_heads)
         return fused_serial_block(x, weights, self.num_heads)

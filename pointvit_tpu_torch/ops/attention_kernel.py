@@ -7,6 +7,7 @@ Counterpart of ``pointvit_tpu/ops/pallas_attention.py``::
 
     fused_mha_qkv         (B, S, 3E) → (B, S, E)   _mha_qkv_pallas      → csrc/attention.cu
       its backward        qkv, g → dqkv            _mha_qkv_bwd_pallas  → csrc/attention_bwd.cu
+      (other dtypes and head dims, both directions)                  → csrc/attention_any.cu
     fused_mha             (B, S, H, D) x 3 → (B, S, H, D): pack, the two kernels above, split
     fused_attention_block x (B, S, E) → (B, S, E)  _attn_block_pallas   → csrc/attn_block.cu + csrc/gemm.cu
       its backward        torch.matmul for the products, csrc/attention_bwd.cu for the attention
@@ -22,10 +23,12 @@ which accumulate in f32; g cast to qkv.dtype first (``:427``). Kernel and
 plain version therefore differ only in summation order.
 
 A CPU tensor takes the plain versions in both directions; a CUDA tensor
-launches the kernels (bf16, head dim 64; S: any for the attention and its
-backward, up to 736 for the fused sublayer's first launch) and raises on
-anything else. ``implementation='torch'`` takes the plain versions on any
-device.
+launches the kernels and raises on anything they do not take. The attention
+and its backward take any S: bf16 at head dim 64 goes to the wgmma kernels,
+bf16 or f32 at any other head dim up to 256 (and f32 at 64) to
+``csrc/attention_any.cu`` (:func:`~pointvit_tpu_torch.ops.block_kernel.wgmma_attention`
+picks). The fused sublayer takes bf16 at head dim 64 and S up to 736.
+``implementation='torch'`` takes the plain versions on any device.
 """
 
 from __future__ import annotations
@@ -33,7 +36,9 @@ from __future__ import annotations
 import torch
 
 from pointvit_tpu_torch._build import FLOAT, INT, PTR, LaunchCounter, check, kernel, require, stream_ptr
-from pointvit_tpu_torch.ops.block_kernel import launch_attention, reference_attention, split_heads
+from pointvit_tpu_torch.ops.block_kernel import (
+    MAX_HEAD_DIM, launch_attention, reference_attention, split_heads, wgmma_attention,
+)
 from pointvit_tpu_torch.ops.gemm_kernel import gemm
 
 __all__ = [
@@ -51,11 +56,13 @@ __all__ = [
     "reference_mha_qkv_bwd",
     "launches",
     "bwd_launches",
+    "any_bwd_launches",
     "attn_block_launches",
 ]
 
 launches = LaunchCounter("mha_qkv")
 bwd_launches = LaunchCounter("mha_qkv_bwd")
+any_bwd_launches = LaunchCounter("attention_any_bwd")
 attn_block_launches = LaunchCounter("attn_block")
 
 reference_mha_qkv = reference_attention
@@ -85,29 +92,34 @@ def reference_mha_qkv_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) ->
 
 
 def mha_qkv(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """Attention forward (B, S, 3E) → (B, S, E): ``csrc/attention.cu`` on a
-    CUDA tensor (head dim 64, any S), the plain version on a CPU tensor."""
+    """Attention forward (B, S, 3E) → (B, S, E) on a CUDA tensor (any S):
+    ``csrc/attention.cu`` for bf16 at head dim 64 (counted as ``mha_qkv``),
+    ``csrc/attention_any.cu`` otherwise; the plain version on a CPU tensor."""
     if not qkv.is_cuda:
         split_heads(qkv, num_heads)
         return reference_mha_qkv(qkv, num_heads)
-    out = launch_attention(qkv, num_heads)
-    launches.add()
-    return out
+    return launch_attention(qkv, num_heads, launches)
 
 
 def mha_qkv_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """Attention backward: ``csrc/attention_bwd.cu`` on CUDA tensors (bf16,
-    head dim 64, any S), the plain version on CPU tensors."""
+    """Attention backward on CUDA tensors (any S): ``csrc/attention_bwd.cu``
+    for bf16 at head dim 64 (counted as ``mha_qkv_bwd``), else
+    ``csrc/attention_any.cu`` (bf16 or f32, head dim up to 256; counted as
+    ``attention_any_bwd``); the plain version on CPU tensors. g is cast to
+    qkv's dtype first."""
     B, S, E, D = split_heads(qkv, num_heads)
     if tuple(g.shape) != (B, S, E):
         raise ValueError(f"g must be {(B, S, E)}, got {tuple(g.shape)}")
     if not qkv.is_cuda:
         return reference_mha_qkv_bwd(qkv, g, num_heads)
-    require(qkv, "qkv", torch.bfloat16, 3)
-    g = g.to(torch.bfloat16).contiguous()
-    require(g, "g", torch.bfloat16, 3, qkv.device)
-    if D != 64:
-        raise ValueError(f"the attention backward kernel takes head_dim 64; got head_dim {D}, S {S}")
+    dt = qkv.dtype
+    if dt not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the attention backward kernels take bf16 or f32, got {dt}")
+    require(qkv, "qkv", dt, 3)
+    g = g.to(dt).contiguous()
+    require(g, "g", dt, 3, qkv.device)
+    if not wgmma_attention(dt, D):
+        return _any_bwd(qkv, g, B, S, num_heads, D)
     dqkv = torch.empty_like(qkv)
     # (row max · c, 1 / row sum, delta) of every query row, rows padded to 64
     stats = torch.empty((3, B, num_heads, -(-S // 64) * 64), dtype=torch.float32, device=qkv.device)
@@ -117,6 +129,22 @@ def mha_qkv_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int) -> torch.Ten
              D**-0.5, stream_ptr(qkv.device))
     check(err, "attention_bwd", "pv_attention_bwd")
     bwd_launches.add()
+    return dqkv
+
+
+def _any_bwd(qkv, g, B, S, num_heads, D):
+    """The backward's two launches of ``csrc/attention_any.cu``."""
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"the attention backward kernels take head_dim up to {MAX_HEAD_DIM}; "
+                         f"got head_dim {D}, S {S}")
+    dqkv = torch.empty_like(qkv)
+    stats = torch.empty((3, B, num_heads, S), dtype=torch.float32, device=qkv.device)
+    fn = kernel("attention_any", "pv_attention_any_bwd",
+                [PTR, PTR, PTR, PTR, INT, INT, INT, INT, FLOAT, INT, PTR])
+    err = fn(qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), stats.data_ptr(), B, S, num_heads, D,
+             D**-0.5, int(qkv.dtype == torch.float32), stream_ptr(qkv.device))
+    check(err, "attention_any", "pv_attention_any_bwd")
+    any_bwd_launches.add()
     return dqkv
 
 

@@ -16,7 +16,9 @@ rounding follows ``_apf_block_pallas``: LN gammas and betas and all biases
 are rounded to bf16 (``pallas_block.py:204-205``); the adapter scale is
 folded into ``up`` in f32 and then rounded (``:228-233``); LN statistics
 and the softmax are f32 with eps 1e-6; P is rounded to bf16 before P·V;
-GELU is the exact erf form.
+GELU is the exact erf form. An f32 block (``bf16=False`` models) runs
+the same chain in f32: the LayerNorms' f32 instances, the f32 GEMM and the
+attention for any head dim (``csrc/attention_any.cu``).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from pointvit_tpu_torch.ops.gemm_kernel import gemm
 
 __all__ = [
     "apf_block_shapes_ok",
+    "apf_launch_weights",
     "apf_block_weights",
     "fused_apf_block",
     "launch_chain",
@@ -42,6 +45,8 @@ __all__ = [
     "attention",
     "attention_max_seq",
     "launch_attention",
+    "MAX_HEAD_DIM",
+    "wgmma_attention",
     "reference_attention",
     "split_heads",
     "launches",
@@ -53,6 +58,9 @@ launches = LaunchCounter("apf_block")
 ln_launches = LaunchCounter("layernorm")
 pos_ln_launches = LaunchCounter("pos_layernorm")
 attn_launches = LaunchCounter("attention")
+any_launches = LaunchCounter("attention_any")
+
+MAX_HEAD_DIM = 256  # the largest head dim csrc/attention_any.cu takes
 
 
 def apf_block_weights(block) -> tuple[torch.Tensor, ...]:
@@ -83,20 +91,28 @@ def reference_layer_norm(x, gamma, beta):
     return ((xf - mu) * torch.rsqrt(var + LN_EPS) * gamma.float() + beta.float()).to(x.dtype)
 
 
+def _float_dtype(x: torch.Tensor) -> torch.dtype:
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the kernels take bf16 or f32, got {x.dtype}")
+    return x.dtype
+
+
 def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
-    """LayerNorm over the last axis of (rows, E) bf16: kernel on CUDA, plain on CPU."""
+    """LayerNorm over the last axis of (rows, E), bf16 or f32 (gamma and
+    beta in x's dtype): kernel on CUDA, plain on CPU."""
     if not x.is_cuda:
         return reference_layer_norm(x, gamma, beta)
-    require(x, "x", torch.bfloat16, 2)
+    dt = _float_dtype(x)
+    require(x, "x", dt, 2)
     E = x.shape[1]
     for name, t in (("gamma", gamma), ("beta", beta)):
-        require(t, name, torch.bfloat16, 1, x.device)
+        require(t, name, dt, 1, x.device)
         if t.shape[0] != E:
             raise ValueError(f"{name} has {t.shape[0]} entries, E={E}")
     y = torch.empty_like(x)
-    fn = kernel("block", "pv_layernorm", [PTR, PTR, PTR, PTR, INT, INT, FLOAT, PTR])
+    fn = kernel("block", "pv_layernorm", [PTR, PTR, PTR, PTR, INT, INT, FLOAT, INT, PTR])
     err = fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), x.shape[0], E,
-             LN_EPS, stream_ptr(x.device))
+             LN_EPS, int(dt == torch.float32), stream_ptr(x.device))
     check(err, "block", "pv_layernorm")
     ln_launches.add()
     return y
@@ -119,24 +135,25 @@ def reference_pos_layer_norm(x, pos, gamma, beta):
 
 
 def pos_layer_norm(x: torch.Tensor, pos: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor):
-    """xp = x + pos, y = LN(xp) in one pass over (rows, E) bf16; row r adds
-    ``pos[r % len(pos)]`` (pos is per row, or one (S, E) table shared by
-    every cloud). Returns (xp, y). Kernel on CUDA, plain on CPU."""
+    """xp = x + pos, y = LN(xp) in one pass over (rows, E), bf16 or f32;
+    row r adds ``pos[r % len(pos)]`` (pos is per row, or one (S, E) table
+    shared by every cloud). Returns (xp, y). Kernel on CUDA, plain on CPU."""
     P = _pos_rows(x, pos)
     if not x.is_cuda:
         return reference_pos_layer_norm(x, pos, gamma, beta)
-    require(x, "x", torch.bfloat16, 2)
-    require(pos, "pos", torch.bfloat16, 2, x.device)
+    dt = _float_dtype(x)
+    require(x, "x", dt, 2)
+    require(pos, "pos", dt, 2, x.device)
     E = x.shape[1]
     for name, t in (("gamma", gamma), ("beta", beta)):
-        require(t, name, torch.bfloat16, 1, x.device)
+        require(t, name, dt, 1, x.device)
         if t.shape[0] != E:
             raise ValueError(f"{name} has {t.shape[0]} entries, E={E}")
     xp, y = torch.empty_like(x), torch.empty_like(x)
     fn = kernel("block", "pv_pos_layernorm",
-                [PTR, PTR, INT, PTR, PTR, PTR, PTR, INT, INT, FLOAT, PTR])
+                [PTR, PTR, INT, PTR, PTR, PTR, PTR, INT, INT, FLOAT, INT, PTR])
     err = fn(x.data_ptr(), pos.data_ptr(), P, gamma.data_ptr(), beta.data_ptr(), xp.data_ptr(),
-             y.data_ptr(), x.shape[0], E, LN_EPS, stream_ptr(x.device))
+             y.data_ptr(), x.shape[0], E, LN_EPS, int(dt == torch.float32), stream_ptr(x.device))
     check(err, "block", "pv_pos_layernorm")
     pos_ln_launches.add()
     return xp, y
@@ -163,14 +180,13 @@ def reference_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 
 
 def attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """Packed-qkv MHA (B, S, 3E) → (B, S, E): kernel on CUDA (bf16, head
-    dim 64, any S), plain on CPU."""
+    """Packed-qkv MHA (B, S, 3E) → (B, S, E): kernel on CUDA (any S; bf16
+    or f32; head dim up to 256), plain on CPU. The wgmma kernel's launches
+    count as ``attention``, the any-head-dim kernel's as ``attention_any``."""
     if not qkv.is_cuda:
         split_heads(qkv, num_heads)
         return reference_attention(qkv, num_heads)
-    out = launch_attention(qkv, num_heads)
-    attn_launches.add()
-    return out
+    return launch_attention(qkv, num_heads, attn_launches)
 
 
 def split_heads(qkv: torch.Tensor, num_heads: int) -> tuple[int, int, int, int]:
@@ -193,18 +209,37 @@ def attention_max_seq(head_dim: int) -> int:
     return 1024 if head_dim == 64 else 0
 
 
-def launch_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """One launch of ``csrc/attention.cu`` on a CUDA tensor (head dim 64,
-    any S), uncounted: each caller counts it under its own name."""
+def wgmma_attention(dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether the attention in either direction takes the wgmma kernels
+    (``csrc/attention.cu``, ``csrc/attention_bwd.cu``): bf16 at head dim
+    64. Every other dtype and head dim takes ``csrc/attention_any.cu``."""
+    return dtype == torch.bfloat16 and head_dim == 64
+
+
+def launch_attention(qkv: torch.Tensor, num_heads: int, counter: LaunchCounter) -> torch.Tensor:
+    """One attention launch on a CUDA tensor (any S): ``csrc/attention.cu``
+    where :func:`wgmma_attention` holds, counted on ``counter`` (each
+    caller's own name); else ``csrc/attention_any.cu`` (bf16 or f32, head
+    dim 1 to 256), counted as ``attention_any``. Raises on anything else."""
     B, S, E, D = split_heads(qkv, num_heads)
-    require(qkv, "qkv", torch.bfloat16, 3)
-    if D != 64:
-        raise ValueError(f"the attention kernel takes head_dim 64; got head_dim {D}, S {S}")
-    out = torch.empty((B, S, E), dtype=torch.bfloat16, device=qkv.device)
-    fn = kernel("attention", "pv_attention", [PTR, PTR, INT, INT, INT, INT, FLOAT, PTR])
+    dt = _float_dtype(qkv)
+    require(qkv, "qkv", dt, 3)
+    out = torch.empty((B, S, E), dtype=dt, device=qkv.device)
+    if wgmma_attention(dt, D):
+        fn = kernel("attention", "pv_attention", [PTR, PTR, INT, INT, INT, INT, FLOAT, PTR])
+        err = fn(qkv.data_ptr(), out.data_ptr(), B, S, num_heads, D, D ** -0.5,
+                 stream_ptr(qkv.device))
+        check(err, "attention", "pv_attention")
+        counter.add()
+        return out
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"the attention kernels take head_dim up to {MAX_HEAD_DIM}; got "
+                         f"head_dim {D}, S {S}")
+    fn = kernel("attention_any", "pv_attention_any", [PTR, PTR, INT, INT, INT, INT, FLOAT, INT, PTR])
     err = fn(qkv.data_ptr(), out.data_ptr(), B, S, num_heads, D, D ** -0.5,
-             stream_ptr(qkv.device))
-    check(err, "attention", "pv_attention")
+             int(dt == torch.float32), stream_ptr(qkv.device))
+    check(err, "attention_any", "pv_attention_any")
+    any_launches.add()
     return out
 
 
@@ -248,10 +283,13 @@ def apf_block_shapes_ok(S: int, E: int, num_heads: int) -> bool:
     return E % num_heads == 0 and 0 < S <= attention_max_seq(E // num_heads)
 
 
-def fused_apf_block(x: torch.Tensor, weights, num_heads: int) -> torch.Tensor:
+def fused_apf_block(x: torch.Tensor, weights, num_heads: int, launch_weights=None) -> torch.Tensor:
     """Whole APF block at inference, x (B, S, E) → (B, S, E). ``weights`` is
     the 19-tuple of :func:`apf_block_weights`. The kernel chain for a CUDA
-    tensor (bf16 only), the plain version for a CPU tensor."""
+    tensor (bf16 or f32), the plain version for a CPU tensor.
+    ``launch_weights``: :func:`apf_launch_weights` of ``weights`` for x's
+    dtype and device, where the caller keeps them (``APFBlock`` does); made
+    here otherwise."""
     if x.dim() != 3:
         raise ValueError(f"x must be (B, S, E), got {tuple(x.shape)}")
     B, S, E = x.shape
@@ -259,22 +297,29 @@ def fused_apf_block(x: torch.Tensor, weights, num_heads: int) -> torch.Tensor:
         raise ValueError(f"E={E} is not a multiple of num_heads={num_heads}")
     if not x.is_cuda:
         return reference_apf_block(x, weights, num_heads)
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"the block kernels compute in bf16, got {x.dtype}")
-    out = launch_chain(x, weights, num_heads)
+    _float_dtype(x)
+    out = launch_chain(x, weights, num_heads, launch_weights)
     launches.add()
     return out
 
 
-def launch_chain(x: torch.Tensor, weights, num_heads: int) -> torch.Tensor:
+def apf_launch_weights(weights, dtype: torch.dtype, device) -> tuple[torch.Tensor, ...]:
+    """The 19-tuple as the chain launches it: 18 contiguous arrays on
+    ``device`` in ``dtype``, the adapter scale folded into ``up``, matrices
+    in ``nn.Linear``'s (out, in) layout."""
+    return tuple(t.to(device).t().contiguous() if t.dim() == 2 else t.to(device).contiguous()
+                 for t in _rounded(weights, dtype))
+
+
+def launch_chain(x: torch.Tensor, weights, num_heads: int, launch_weights=None) -> torch.Tensor:
     """The block as its chain of LayerNorm, GEMM and attention calls (on a
     CPU tensor each call takes its plain version, which the tests use)."""
     B, S, E = x.shape
     dt = x.dtype
-    w = [t.to(x.device) for t in _rounded(weights, dt)]
+    if launch_weights is None:
+        launch_weights = apf_launch_weights(weights, dt, x.device)
     (g1, b1, wqkv, bqkv, wproj, bproj, g2, b2, wfc1, bfc1, wfc2, bfc2,
-     ga, ba, wdn, bdn, wup, bup) = [t.t().contiguous() if t.dim() == 2 else t.contiguous()
-                                    for t in w]
+     ga, ba, wdn, bdn, wup, bup) = launch_weights
     x2 = x.reshape(B * S, E).contiguous()
     h = layer_norm(x2, g1, b1)
     qkv, _ = gemm(h, wqkv, bqkv, out_dtype=dt)

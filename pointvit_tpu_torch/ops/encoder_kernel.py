@@ -93,13 +93,13 @@ def reference_folded_encoder(x: torch.Tensor, weights) -> torch.Tensor:
 def fused_group_encoder(x: torch.Tensor, weights) -> torch.Tensor:
     """Folded encoder, x (M, K, C) → (M, E). ``weights`` is the 11-tuple of
     :func:`fold_encoder_params`. The kernel chain for a CUDA tensor (bf16
-    only), the plain version for a CPU tensor."""
+    or f32), the plain version for a CPU tensor."""
     if x.dim() != 3:
         raise ValueError(f"x must be (M, K, C), got {tuple(x.shape)}")
     if not x.is_cuda:
         return reference_folded_encoder(x, weights)
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"the encoder kernel computes in bf16, got {x.dtype}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the encoder kernels compute in bf16 or f32, got {x.dtype}")
     out = launch_chain(x, weights)
     launches.add()
     return out

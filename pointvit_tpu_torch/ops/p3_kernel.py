@@ -81,13 +81,13 @@ def reference_folded_p3(x: torch.Tensor, weights) -> torch.Tensor:
 def fused_p3_embed(x: torch.Tensor, weights) -> torch.Tensor:
     """Folded P3Embed stage, x (M, K, C) → (M, D). ``weights`` is the 7-tuple
     of :func:`fold_p3_stage_params`. The kernel chain for a CUDA tensor (bf16
-    only), the plain version for a CPU tensor."""
+    or f32), the plain version for a CPU tensor."""
     if x.dim() != 3:
         raise ValueError(f"x must be (M, K, C), got {tuple(x.shape)}")
     if not x.is_cuda:
         return reference_folded_p3(x, weights)
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"the P3 stage kernels compute in bf16, got {x.dtype}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the P3 stage kernels compute in bf16 or f32, got {x.dtype}")
     out = launch_chain(x, weights)
     launches.add()
     return out

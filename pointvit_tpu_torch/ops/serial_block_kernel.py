@@ -103,7 +103,7 @@ def reference_serial_block(x: torch.Tensor, weights, num_heads: int) -> torch.Te
 def fused_serial_block(x: torch.Tensor, weights, num_heads: int) -> torch.Tensor:
     """Whole serial-adapter block at inference, x (B, S, E) → (B, S, E).
     ``weights`` is the 20-tuple of :func:`serial_block_weights` in x's dtype.
-    The kernel chain for a CUDA tensor (bf16, shapes that pass
+    The kernel chain for a CUDA tensor (bf16 or f32, shapes that pass
     :func:`serial_block_shapes_ok`; raises otherwise), the plain version for
     a CPU tensor."""
     if x.dim() != 3:
@@ -113,8 +113,8 @@ def fused_serial_block(x: torch.Tensor, weights, num_heads: int) -> torch.Tensor
         raise ValueError(f"E={E} is not a multiple of num_heads={num_heads}")
     if not x.is_cuda:
         return reference_serial_block(x, weights, num_heads)
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"the block kernels compute in bf16, got {x.dtype}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the block kernels compute in bf16 or f32, got {x.dtype}")
     if not serial_block_shapes_ok(S, E, num_heads):
         D = E // num_heads
         raise ValueError(f"the serial block kernels take head_dim 64 and S ≤ "

@@ -97,6 +97,39 @@ def test_backward_matches_pallas_interpret(S, dtype):
                                rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("D", [8, 16, 32, 128])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_other_head_dims_match_pallas_interpret_forward_and_backward(D, dtype):
+    """The head dims that csrc/attention_any.cu serves on the card (the
+    benchmarks' small configs run D = 8 and 16): the port's plain forward
+    and backward, which that kernel pair is held to, against
+    ``_mha_qkv_pallas`` and ``_mha_qkv_bwd_pallas`` in interpret mode. f32
+    at the highest precision: within 1e-5 of max|ref|. bf16: both round P,
+    dS and every output at the same points, so within one bf16 step (2^-7
+    of max|ref|)."""
+    heads, B, S = 2, 2, 37
+    rng = np.random.default_rng(1000 + D)
+    qkv = (2.0 * rng.standard_normal((B, S, 3 * heads * D))).astype(np.float32)
+    g = rng.standard_normal((B, S, heads * D)).astype(np.float32)
+    if dtype == "f32":
+        with jax.default_matmul_precision("highest"):
+            want = _mha_qkv_pallas(jnp.asarray(qkv), heads, interpret=True)
+            want_b = _mha_qkv_bwd_pallas(jnp.asarray(qkv), jnp.asarray(g), heads, interpret=True)
+        x, gt, tol = T(qkv), T(g), REL_TOL
+    else:
+        jq, jg = jnp.asarray(qkv, jnp.bfloat16), jnp.asarray(g, jnp.bfloat16)
+        want = _mha_qkv_pallas(jq, heads, interpret=True).astype(jnp.float32)
+        want_b = _mha_qkv_bwd_pallas(jq, jg, heads, interpret=True).astype(jnp.float32)
+        x, gt, tol = T(qkv).bfloat16(), T(g).bfloat16(), 2.0**-7
+    got = attention_kernel.mha_qkv(x, heads)
+    got_b = attention_kernel.mha_qkv_bwd(x, gt, heads)
+    assert got.dtype == got_b.dtype == x.dtype
+    _assert_rel(got.float(), np.asarray(want), tol)
+    E = heads * D
+    for i in range(3):  # dq, dk, dv each against its own scale
+        _assert_rel(got_b[..., i * E:(i + 1) * E].float(), np.asarray(want_b)[..., i * E:(i + 1) * E], tol)
+
+
 def test_backward_casts_g_to_the_compute_dtype():
     """g arrives in f32 from an f32 loss; like pallas_attention.py:427 the
     backward rounds it to qkv's dtype first."""

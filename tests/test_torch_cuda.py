@@ -146,6 +146,62 @@ def test_gemm_off_the_tiles(dev, M, K, N, epilogue):
         _assert_rel(pre, want_pre, 2.0**-7)
 
 
+# The ping-pong instance (one producer and two consumer warpgroups taking
+# output tiles in turn) at the same edges, forced, with bit-equal repeats.
+@pytest.mark.parametrize("M,K,N", [(985, 768, 64), (985, 64, 96), (985, 8, 768), (197, 64, 2304),
+                                   (985, 3072, 768)])
+@pytest.mark.parametrize("epilogue", ["gelu", "res_f32_pre", "res_bf16x2_f32"])
+def test_gemm_pingpong_off_the_tiles(dev, M, K, N, epilogue):
+    gen = torch.Generator().manual_seed(7 * M + K + N)
+    a, w, bias = _rand(gen, M, K, dev=dev), _rand(gen, N, K, dev=dev, scale=K**-0.5), _rand(gen, N, dev=dev)
+    pres = want_pre = None
+    if epilogue == "gelu":
+        kw = dict(act="gelu")
+    elif epilogue == "res_f32_pre":
+        kw = dict(res=_rand(gen, M, N, dev=dev, dtype=torch.float32), out_dtype=torch.float32)
+        pres = [torch.empty(M, N, dtype=torch.bfloat16, device=dev) for _ in range(2)]
+        want_pre = torch.empty_like(pres[0])
+    else:
+        kw = dict(res=_rand(gen, M, N, dev=dev), res_scale=2.0, out_dtype=torch.float32)
+    _build.reset_launch_counts()
+    got, _ = gemm(a, w, bias, pre_out=pres and pres[0], instance="pingpong", **kw)
+    again, _ = gemm(a, w, bias, pre_out=pres and pres[1], instance="pingpong", **kw)
+    assert _build.launch_counts()["gemm_pingpong"] == 2
+    want, _ = reference_gemm(a, w, bias, pre_out=want_pre, **kw)
+    _assert_rel(got, want, 2.0**-7 if got.dtype == torch.bfloat16 else 2.0**-12)
+    assert torch.equal(got, again)
+    if pres is not None:
+        _assert_rel(pres[0], want_pre, 2.0**-7)
+        assert torch.equal(pres[0], pres[1])
+
+
+@pytest.mark.parametrize("N,K,epilogue", [(1152, 384, "none"), (384, 384, "res_bf16"), (1536, 384, "gelu"),
+                                          (384, 1536, "res_bf16")])
+def test_gemm_pingpong_alternates_over_many_tiles(dev, N, K, epilogue):
+    """The ViT block's products at M = 16 * 513: many more tiles than SMs,
+    so both consumers take turns on every block; the same bits as the
+    two-block 128 x 128 instance's up to summation order, bit-equal repeats."""
+    gen = torch.Generator().manual_seed(N + K)
+    M = 16 * 513
+    a, w, bias = _rand(gen, M, K, dev=dev), _rand(gen, N, K, dev=dev, scale=K**-0.5), _rand(gen, N, dev=dev)
+    kw = {"none": {}, "gelu": dict(act="gelu"), "res_bf16": dict(res=_rand(gen, M, N, dev=dev))}[epilogue]
+    got, _ = gemm(a, w, bias, instance="pingpong", **kw)
+    assert torch.equal(got, gemm(a, w, bias, instance="pingpong", **kw)[0])
+    _assert_rel(got, reference_gemm(a, w, bias, **kw)[0], 2.0**-7)
+    _assert_rel(got, gemm(a, w, bias, instance="128x128", **kw)[0], 2.0**-7)
+
+
+def test_gemm_refuses_an_instance_that_cannot_take_the_product(dev):
+    a, w = torch.zeros(256, 64, device=dev, dtype=torch.bfloat16), torch.zeros(100, 64, device=dev,
+                                                                               dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="N % 8"):
+        gemm(a, w, instance="pingpong")
+    with pytest.raises(ValueError, match="group max"):
+        gemm(a, w[:96].contiguous(), instance="pingpong", group=16)
+    with pytest.raises(ValueError, match="unknown instance"):
+        gemm(a, w[:96].contiguous(), instance="256x256")
+
+
 @pytest.mark.parametrize("G", [16, 32])
 @pytest.mark.parametrize("with_out", [True, False])
 def test_gemm_group_max_across_warps(dev, G, with_out):
@@ -202,8 +258,12 @@ def test_attention_and_layernorm(dev, B, S):
 
 
 def test_attention_refuses_other_head_dims(dev):
-    with pytest.raises(ValueError, match="head_dim 64"):
-        block_kernel.attention(torch.zeros(1, 16, 3 * 128, device=dev, dtype=torch.bfloat16), 4)
+    """Head dims past 256, the limit of csrc/attention_any.cu, raise; every
+    head dim up to it is served (test_attention_any_*)."""
+    with pytest.raises(ValueError, match="head_dim up to 256"):
+        block_kernel.attention(torch.zeros(1, 16, 3 * 320, device=dev, dtype=torch.bfloat16), 1)
+    with pytest.raises(ValueError, match="head_dim up to 256"):
+        attention_kernel.mha_qkv(torch.zeros(1, 16, 3 * 320, device=dev, dtype=torch.float32), 1)
     # 1024 is the blocks' gate; the attention kernel itself serves longer sequences.
     assert block_kernel.attention_max_seq(64) == 1024
     qkv = _rand(torch.Generator().manual_seed(11), 1, 1025, 3 * 768, dev=dev, scale=2.0)
@@ -230,9 +290,9 @@ def test_attention_backward_matches_its_plain_version_and_repeats_bit_for_bit(de
 
 
 def test_attention_backward_refuses_other_head_dims_and_long_sequences(dev):
-    with pytest.raises(ValueError, match="head_dim 64"):
-        attention_kernel.mha_qkv_bwd(torch.zeros(1, 16, 3 * 128, device=dev, dtype=torch.bfloat16),
-                                     torch.zeros(1, 16, 128, device=dev, dtype=torch.bfloat16), 4)
+    with pytest.raises(ValueError, match="head_dim up to 256"):
+        attention_kernel.mha_qkv_bwd(torch.zeros(1, 16, 3 * 320, device=dev, dtype=torch.bfloat16),
+                                     torch.zeros(1, 16, 320, device=dev, dtype=torch.bfloat16), 1)
     # Long sequences are served: S = 1025, past the JAX package's Pallas gate,
     # runs the kernel and matches the plain version.
     gen = torch.Generator().manual_seed(1025)
@@ -426,8 +486,10 @@ def test_vit_block_chain_matches_its_plain_version(dev, pos_kind):
     _build.reset_launch_counts()
     got = vit_block_kernel.fused_vit_block(x, w, 6, pos)
     counts = _build.launch_counts()
-    assert counts["vit_block"] == 1 and counts["gemm"] == 4 and counts["attention"] == 1
-    assert counts["pos_layernorm"] == (pos is not None) and counts["layernorm"] == 1 + (pos is None)
+    # at width 384 proj and LN2 are one launch (proj_layernorm)
+    assert counts["vit_block"] == 1 and counts["gemm"] == 3 and counts["attention"] == 1
+    assert counts["proj_layernorm"] == 1
+    assert counts["pos_layernorm"] == (pos is not None) and counts["layernorm"] == (pos is None)
     _assert_rel(got, vit_block_kernel.reference_vit_block(x, w, 6, pos))
 
 
@@ -440,8 +502,8 @@ def test_vit_block_refuses_what_the_kernels_do_not_take(dev):
         vit_block_kernel.fused_vit_block(_rand(gen, 1, 1025, 384, dev=dev), w, 6)
     x = _rand(gen, 1, 1024, 384, dev=dev)  # the JAX gate's longest: the key-tiled attention
     _assert_rel(vit_block_kernel.fused_vit_block(x, w, 6), vit_block_kernel.reference_vit_block(x, w, 6))
-    with pytest.raises(ValueError, match="bf16"):
-        vit_block_kernel.fused_vit_block(_rand(gen, 1, 64, 384, dev=dev, dtype=torch.float32), w, 6)
+    with pytest.raises(ValueError, match="bf16"):  # f32 is taken, f16 is not
+        vit_block_kernel.fused_vit_block(_rand(gen, 1, 64, 384, dev=dev, dtype=torch.float16), w, 6)
 
 
 def _unfused_above_the_gate(dev, make, E, seed, **kw):
@@ -499,7 +561,7 @@ def test_pix4point_serves_through_its_kernels(dev):
     got = InferenceSession(model, buckets=(8,)).predict_logits(pts)
     counts = _build.launch_counts()
     want = InferenceSession(plain, buckets=(8,)).predict_logits(pts)
-    for name in ("fps", "knn", "p3_embed", "vit_block", "gemm", "layernorm", "pos_layernorm",
+    for name in ("fps", "knn", "p3_embed", "vit_block", "gemm", "proj_layernorm", "pos_layernorm",
                  "attention"):
         assert counts[name] > 0, name
     err = abs(got - want).max() / abs(want).max()
@@ -538,8 +600,8 @@ def test_serial_block_refuses_what_the_kernels_do_not_take(dev):
         serial_block_kernel.fused_serial_block(_rand(gen, 1, 64, 768, dev=dev), w, 24)
     with pytest.raises(ValueError, match="S ≤ 1024"):
         serial_block_kernel.fused_serial_block(_rand(gen, 1, 1025, 768, dev=dev), w, 12)
-    with pytest.raises(ValueError, match="bf16"):
-        serial_block_kernel.fused_serial_block(_rand(gen, 1, 64, 768, dev=dev, dtype=torch.float32),
+    with pytest.raises(ValueError, match="bf16"):  # f32 is taken, f16 is not
+        serial_block_kernel.fused_serial_block(_rand(gen, 1, 64, 768, dev=dev, dtype=torch.float16),
                                                w, 12)
 
 
@@ -767,3 +829,242 @@ def test_fused_mha_runs_both_attention_kernels(dev):
         results.append((out.detach(), *(a.grad for a in args)))
     for got, want in zip(*results):
         _assert_rel(got, want)
+
+
+# ---- f32 models and head dims other than 64: csrc/attention_any.cu, the
+# f32 GEMM instance, the LayerNorms in f32; P3Embed off its kernel's shapes;
+# the blocks' cached launch weights.
+
+F32_REL_TOL = 2.0**-12  # kernel and plain version differ in f32 summation order only
+
+
+@pytest.mark.parametrize("D,S", [(8, 196), (16, 33), (32, 513), (64, 197), (100, 65), (128, 197),
+                                 (256, 40)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_any_matches_its_plain_version_and_repeats_bit_for_bit(dev, D, S, dtype):
+    heads = max(1, 256 // D)
+    gen = torch.Generator().manual_seed(D * 1000 + S)
+    qkv = _rand(gen, 3, S, 3 * heads * D, dev=dev, dtype=dtype, scale=2.0)
+    g = _rand(gen, 3, S, heads * D, dev=dev, dtype=dtype)
+    _build.reset_launch_counts()
+    out, out2 = (attention_kernel.mha_qkv(qkv, heads) for _ in range(2))
+    dqkv, dqkv2 = (attention_kernel.mha_qkv_bwd(qkv, g, heads) for _ in range(2))
+    counts = _build.launch_counts()
+    wgmma = block_kernel.wgmma_attention(dtype, D)
+    assert counts["attention_any"] == (0 if wgmma else 2) and counts["attention_any_bwd"] == (0 if wgmma else 2)
+    tol = BF16_REL_TOL if dtype == torch.bfloat16 else F32_REL_TOL
+    assert out.dtype == dqkv.dtype == dtype
+    _assert_rel(out, attention_kernel.reference_mha_qkv(qkv, heads), tol)
+    want = attention_kernel.reference_mha_qkv_bwd(qkv, g, heads)
+    E = heads * D
+    for i in range(3):  # dq, dk, dv each against its own scale
+        _assert_rel(dqkv[..., i * E:(i + 1) * E], want[..., i * E:(i + 1) * E], tol)
+    assert torch.equal(out, out2) and torch.equal(dqkv, dqkv2)
+
+
+def _f32_case(gen, M, K, N, epilogue, dev):
+    """Operands and keyword arguments of one f32 GEMM case."""
+    f32 = torch.float32
+    a, w = _rand(gen, M, K, dev=dev, dtype=f32), _rand(gen, N, K, dev=dev, dtype=f32, scale=K**-0.5)
+    bias = _rand(gen, N, dev=dev, dtype=f32)
+    kw = {"gelu": dict(act="gelu", out_dtype=f32),
+          "res_pre": dict(res=_rand(gen, M, N, dev=dev, dtype=f32), out_dtype=f32),
+          "res_x2_relu": dict(res=_rand(gen, M, N, dev=dev, dtype=f32), res_scale=2.0, act="relu",
+                              out_dtype=f32),
+          "row_res": dict(res=_rand(gen, M // 16, N, dev=dev, dtype=f32), res_div=16, act="relu",
+                          out_dtype=f32),
+          "max_per_2": dict(act="relu", group=2, out_dtype=f32),
+          "max_per_32": dict(group=32, out_dtype=None)}[epilogue]
+    return a, w, bias, kw
+
+
+# The shapes of test_gemm_off_the_tiles; M cut to a multiple of the group
+# where the epilogue takes one.
+@pytest.mark.parametrize("M,K,N", [(985, 768, 64), (985, 64, 96), (985, 8, 768), (197, 64, 2304),
+                                   (985, 3072, 768)])
+@pytest.mark.parametrize("epilogue", ["gelu", "res_pre", "res_x2_relu", "row_res", "max_per_2",
+                                      "max_per_32"])
+def test_gemm_f32_off_the_tiles(dev, M, K, N, epilogue):
+    if epilogue in ("row_res", "max_per_32"):
+        M -= M % 32
+    elif epilogue == "max_per_2":
+        M -= M % 2
+    gen = torch.Generator().manual_seed(11 * M + K + N)
+    a, w, bias, kw = _f32_case(gen, M, K, N, epilogue, dev)
+    pre = [torch.empty(M, N, device=dev) for _ in range(3)] if epilogue == "res_pre" else [None] * 3
+    _build.reset_launch_counts()
+    got = gemm(a, w, bias, pre_out=pre[0], **kw)
+    again = gemm(a, w, bias, pre_out=pre[1], **kw)
+    counts = _build.launch_counts()
+    assert counts["gemm_f32"] == 2 and counts["gemm"] == 0
+    want = reference_gemm(a, w, bias, pre_out=pre[2], **kw)
+    for g, g2, ref in zip((*got, pre[0]), (*again, pre[1]), (*want, pre[2])):
+        assert (g is None) == (ref is None)
+        if g is not None:
+            assert g.dtype == torch.float32 and g.shape == ref.shape
+            _assert_rel(g, ref, F32_REL_TOL)
+            assert torch.equal(g, g2)
+
+
+def test_layer_norms_in_f32(dev):
+    gen = torch.Generator().manual_seed(32)
+    x = _rand(gen, 2 * 513, 384, dev=dev, dtype=torch.float32, scale=3.0)
+    pos = _rand(gen, 513, 384, dev=dev, dtype=torch.float32)
+    g, b = _rand(gen, 384, dev=dev, dtype=torch.float32), _rand(gen, 384, dev=dev, dtype=torch.float32)
+    _assert_rel(block_kernel.layer_norm(x, g, b), block_kernel.reference_layer_norm(x, g, b), F32_REL_TOL)
+    for got, want in zip(block_kernel.pos_layer_norm(x, pos, g, b),
+                         block_kernel.reference_pos_layer_norm(x, pos, g, b)):
+        assert got.dtype == torch.float32
+        _assert_rel(got, want, F32_REL_TOL)
+
+
+def _serve_both(dev, cfg, pts, buckets):
+    """Logits of a seeded model on the kernel path and the plain path, and
+    the kernel path's launch counts."""
+    from pointvit_tpu_torch.models import build_model
+    from pointvit_tpu_torch.serve import InferenceSession
+
+    torch.manual_seed(0)
+    model = build_model(cfg)
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():  # live BN statistics and adapters
+        for name, t in model.state_dict().items():
+            if name.endswith("running_var"):
+                t.copy_(0.5 + torch.rand(t.shape, generator=gen))
+            elif name.endswith("up_proj.weight"):
+                t.copy_(0.05 * torch.randn(t.shape, generator=gen))
+    plain = build_model(cfg, implementation="torch")
+    plain.load_state_dict(model.state_dict())
+    _build.reset_launch_counts()
+    got = InferenceSession(model, buckets=buckets).predict_logits(pts)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    want = InferenceSession(plain, buckets=buckets).predict_logits(pts)
+    return got, want, counts
+
+
+APF_F32 = dict(num_classes=15, in_channels=3, embedding_dim=768, npoint=196, nsample=16, depth=2,
+               num_heads=12, encoder_second_width=384, bf16=False)
+P4P_F32 = dict(pretrained_model="vit_small_patch16_384", num_classes=15, k_neighbors=16,
+               embed_dim=384, depth=2, bf16=False)
+
+
+@pytest.mark.parametrize("cfg,points,kernels", [
+    (APF_F32, 1024, ("group_encoder", "apf_block", "layernorm")),
+    (P4P_F32, 2048, ("p3_embed", "vit_block", "pos_layernorm", "layernorm")),
+])
+def test_f32_models_serve_through_the_kernels(dev, cfg, points, kernels):
+    """f32 served logits within 1 % of the largest, argmax equal: the f32
+    GEMM, the f32 LayerNorms and the any-head-dim attention (head dim 64 in
+    f32) launch; the bf16 GEMM and attention never."""
+    import numpy as np
+
+    pts = np.random.default_rng(2).standard_normal((8, points, 3)).astype(np.float32)
+    got, want, counts = _serve_both(dev, cfg, pts, (8,))
+    for name in (*kernels, "gemm_f32", "attention_any"):
+        assert counts[name] > 0, (name, counts)
+    assert counts["gemm"] == 0 and counts["attention"] == 0, counts
+    assert np.isfinite(got).all()
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err <= 0.01 and (got.argmax(-1) == want.argmax(-1)).all(), err
+
+
+def test_head_dim_16_model_serves_and_trains_through_the_any_head_dim_kernels(dev):
+    """The train_step_bench small config (E 64, 4 heads of 16, f32): serving
+    takes the unfused blocks with attention_any; a training step launches
+    the any-head-dim forward and backward, and its gradients agree with the
+    plain path's."""
+    import numpy as np
+
+    from pointvit_tpu_torch.models import AdaptPointFormer, apf_trainable_mask
+    from pointvit_tpu_torch.train.trainer import set_trainable
+
+    cfg = dict(APF_F32, embedding_dim=64, npoint=32, nsample=32, num_heads=4, encoder_second_width=64)
+    pts = np.random.default_rng(3).standard_normal((8, 256, 3)).astype(np.float32)
+    got, want, counts = _serve_both(dev, cfg, pts, (8,))
+    assert counts["attention_any"] == 2 and counts["apf_block"] == 0 and counts["gemm_f32"] > 0, counts
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err <= 0.01 and (got.argmax(-1) == want.argmax(-1)).all(), err
+
+    kw = dict(num_classes=15, embedding_dim=64, npoint=32, nsample=32, depth=2, num_heads=4,
+              encoder_second_width=64, dtype=torch.float32)
+    torch.manual_seed(0)
+    model = AdaptPointFormer(**kw).to(dev)
+    plain = AdaptPointFormer(**kw, implementation="torch").to(dev)
+    plain.load_state_dict(model.state_dict())
+    x = torch.from_numpy(pts).to(dev)
+    grads = []
+    for m in (model, plain):
+        set_trainable(m, apf_trainable_mask(m))
+        _build.reset_launch_counts()
+        logits = m(x, train=True, generator=torch.Generator(device=dev).manual_seed(2))
+        logits.logsumexp(-1).mean().backward()
+        counts = _build.launch_counts()
+        grads.append(torch.cat([p.grad.flatten() for p in m.parameters() if p.grad is not None]))
+        n = 2 if m is model else 0
+        assert counts["attention_any"] == n and counts["attention_any_bwd"] == n, counts
+    err = (grads[0] - grads[1]).norm() / grads[1].norm()
+    assert err <= 1e-4, f"gradient relative L2 error {err.item():.3g}"
+
+
+@pytest.mark.parametrize("clouds,points", [(1, 1000), (8, 1004)])
+def test_pix4point_serves_clouds_off_the_p3_kernel_shapes(dev, clouds, points):
+    """S = 250 and 251 tokens: B·S % 16 != 0, so P3Embed runs stage_unfused
+    on the card, as the JAX module does; no p3_embed launch."""
+    import numpy as np
+
+    cfg = dict(P4P_F32, bf16=True)
+    pts = np.random.default_rng(points).standard_normal((clouds, points, 3)).astype(np.float32)
+    got, want, counts = _serve_both(dev, cfg, pts, (clouds,))
+    assert counts["p3_embed"] == 0 and counts["vit_block"] > 0 and counts["fps"] > 0, counts
+    assert got.shape == (clouds, 15) and np.isfinite(got).all()
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err <= 0.05, err
+
+
+def test_block_launch_weights_are_kept_and_refreshed_after_an_in_place_update(dev):
+    from pointvit_tpu_torch.nn.vit import APFBlock, SerialAdapterBlock, ViTBlock
+
+    gen = torch.Generator().manual_seed(40)
+    for blk, E, H in ((ViTBlock(384, 6, dtype=torch.bfloat16), 384, 6), (APFBlock(768, 12, dtype=torch.bfloat16), 768, 12),
+                      (SerialAdapterBlock(768, 12, dtype=torch.bfloat16), 768, 12)):
+        with torch.no_grad():
+            for p in blk.parameters():
+                p.copy_(torch.randn(p.shape, generator=gen) * (p.shape[-1] ** -0.5 if p.dim() == 2 else 0.2))
+        blk = blk.to(dev).eval()
+        x = _rand(gen, 2, 197, E, dev=dev)
+        with torch.inference_mode():
+            first = blk(x)
+            kept = blk._launch._value
+            assert blk(x).equal(first) and blk._launch._value is kept
+        with torch.no_grad():
+            blk.norm2.weight.mul_(2.0) if hasattr(blk, "norm2") else blk.ln_2.weight.mul_(2.0)
+        with torch.inference_mode():
+            second = blk(x)
+        assert blk._launch._value is not kept and not second.equal(first)
+        plain = type(blk)(E, H, dtype=torch.bfloat16, implementation="torch").to(dev).eval()
+        plain.load_state_dict(blk.state_dict())
+        with torch.inference_mode():
+            _assert_rel(second, plain(x))
+
+
+@pytest.mark.parametrize("M,K", [(985, 384), (16 * 513, 384), (300, 1536)])
+def test_proj_layer_norm_matches_its_plain_version_and_repeats_bit_for_bit(dev, M, K):
+    """The ViT block's proj + residual + LN2 as one launch (width 384): x1
+    within one bf16 step, LN2(x1) within BF16_REL_TOL of the plain version
+    (its statistics summed in another order), two runs bit-equal."""
+    gen = torch.Generator().manual_seed(M + K)
+    a, w = _rand(gen, M, K, dev=dev), _rand(gen, 384, K, dev=dev, scale=K**-0.5)
+    bias, res = _rand(gen, 384, dev=dev), _rand(gen, M, 384, dev=dev, scale=2.0)
+    g, b = _rand(gen, 384, dev=dev, scale=0.5), _rand(gen, 384, dev=dev)
+    _build.reset_launch_counts()
+    x1, y = vit_block_kernel.proj_layer_norm(a, w, bias, res, g, b)
+    x1b, yb = vit_block_kernel.proj_layer_norm(a, w, bias, res, g, b)
+    assert _build.launch_counts()["proj_layernorm"] == 2
+    want_x1, want_y = vit_block_kernel.reference_proj_layer_norm(a, w, bias, res, g, b)
+    _assert_rel(x1, want_x1, 2.0**-7)
+    _assert_rel(y, want_y)
+    _assert_rel(y, block_kernel.layer_norm(x1, g, b))
+    assert torch.equal(x1, x1b) and torch.equal(y, yb)
+    with pytest.raises(ValueError, match="w must be"):
+        vit_block_kernel.proj_layer_norm(a, w[:256].contiguous(), bias, res, g, b)

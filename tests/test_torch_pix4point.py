@@ -202,6 +202,30 @@ def test_p3embed_matches_the_jax_module(layers):
             _assert_rel(mod.stage_unfused(torch.cat([gp, gf], -1)), tokens)
 
 
+def test_p3embed_off_the_kernel_shapes_runs_stage_unfused(monkeypatch):
+    """B·S % 16 != 0 (3 clouds of 100 points: S = 25): with
+    ``implementation=None`` the module takes ``stage_unfused``, as the JAX
+    module takes its unfused stack there (the CUDA branch is pinned in
+    tests/test_torch_cuda.py), and matches the JAX module."""
+    rng = np.random.default_rng(9)
+    points = _clouds(9, B=3, N=100)
+    jmod = JP3Embed(k=K)
+    variables = _np_tree(jax.jit(jmod.init)(jax.random.PRNGKey(9), jnp.asarray(points),
+                                            jnp.asarray(points)))
+    _live_stats(variables["batch_stats"], rng)
+    mod = load_flax_variables(P3Embed(k=K), variables).eval()
+    assert mod.implementation is None and mod.layers == 4
+    calls, real = [], mod.stage_unfused
+    monkeypatch.setattr(mod, "stage_unfused", lambda x: calls.append(x.shape) or real(x))
+    with jax.default_matmul_precision("highest"):
+        jc, jtok = jax.jit(lambda v, p: jmod.apply(v, p, p))(variables, jnp.asarray(points))
+    with torch.no_grad():
+        centers, tokens = mod(T(points), T(points))
+    assert calls == [(3, 25, K, 6)]
+    np.testing.assert_array_equal(centers.numpy(), np.asarray(jc))
+    _assert_rel(tokens, jtok)
+
+
 def test_pos_embed_mlp_matches_jax():
     xyz = _clouds(8, N=TOKENS)
     jmod = JPosEmbed(128)
