@@ -26,7 +26,20 @@
    step of slim2 with npoint 1536 on 8 clouds of 4096 points, above the
    JAX package's Pallas gate for the attention backward, on both paths
    from the same weights, batch and draws: first loss and gradients held as
-   above, and the attention backward kernel must launch.
+   above, and the attention backward kernel must launch. Then Pix4Point
+   training: ``build_model`` of the ``train_pix4point.py`` config (vit_small,
+   12 blocks x 6 heads, k 16, 15 classes, bf16) at full width and depth with
+   seeded random weights, on both paths, 7 steps of 64 x 2048 clouds with
+   the optimizer ``Pix4PointTrainer`` builds (``pix4point_optimizer``: warm-up
+   then cosine from lr 5e-4, wd 5e-2 off for the no-decay names, clip 10),
+   random FPS starts and the head's dropout drawn as above, an f32 first
+   step as the gradient reference, held by the same gates; FPS, kNN and
+   both attention kernels must launch during the timed steps and the fused
+   P3 stage and ViT block kernels must not (training runs them unfused, as
+   JAX does). One kernel-path step is split by CUDA events into tokenizer +
+   P3, blocks, head + loss, backward and optimizer, and one step with the
+   trunk frozen must leave every ``model.blocks.*`` and ``model.norm.*``
+   tensor bit-unchanged and move ``cls_token`` and the head.
 4. Pix4Point serving: ``build_model`` of the ``train_pix4point.py`` config
    (vit_small: E=384, 12 blocks x 6 heads, k 16, 15 classes; bf16) at full
    width and depth with seeded random weights (BN statistics, LN affines,
@@ -219,6 +232,11 @@ P4P_CONFIG = {
 }
 P4P_POINTS, P4P_TOKENS = 2048, 512
 
+# Pix4Point training: the train_config of train_pix4point.py (batch 64 of
+# 2048-point clouds; warm-up then cosine, clip 10), from seeded weights.
+P4P_TRAIN_CONFIG = {"batch_size": 64, "learning_rate": 5e-4, "weight_decay": 5e-2, "t_max": 100,
+                    "warmup_epochs": 10, "min_lr": 1.0e-6, "grad_norm_clip": 10}
+
 # Renderer serving: the model_config of train_renderer.py, in bf16.
 RENDERER_CONFIG = {
     "num_classes": 15, "vit_name": "vit_b_16", "adapter_dim": 64, "num_views": 6,
@@ -299,6 +317,14 @@ GROUP_MLP_COUNTERS = ("group_stack", "group_head")
 SERVING_COUNTERS = ("fps", "knn", "group_encoder", *GROUP_MLP_COUNTERS, "apf_block", "gemm", "layernorm",
                     "attention")
 TRAINING_COUNTERS = ("fps", "knn", "mha_qkv", "mha_qkv_bwd")
+# Pix4Point training raises the same counters and leaves the fused P3 stage
+# and blocks, as the JAX package does (nn/pointnet.py:168-171,
+# nn/vit.py:70-71).
+P4P_TRAIN_UNUSED = ("p3_embed", "p3_embed_chain", *GROUP_MLP_COUNTERS, "vit_block", "proj_layernorm",
+                    "pos_layernorm")
+# Its biases whose gradient is exactly zero: each feeds a train-mode
+# BatchNorm (the final norm's reaches the head's first as a constant).
+P4P_PRE_BN_BIASES = ("s0_conv1_1.bias", "cls_head.fc0.bias", "cls_head.fc1.bias", "model.norm.bias")
 P4P_COUNTERS = ("fps", "knn", "p3_embed", *GROUP_MLP_COUNTERS, "vit_block", "gemm", "proj_layernorm",
                 "pos_layernorm", "attention")
 CHAIN_COUNTERS = ("group_encoder_chain", "p3_embed_chain")
@@ -430,9 +456,7 @@ def shape_clouds(rng, n: int, classes: int, points: int = POINTS) -> tuple[np.nd
 def train_phase(torch, dev, _build) -> dict:
     """Both training paths on the same seeded weights, batches and draws."""
     from pointvit_tpu_torch.models import AdaptPointFormer, apf_preset_config, apf_trainable_mask
-    from pointvit_tpu_torch.train import (
-        Trainer, build_optimizer, cross_entropy_loss, set_trainable, timm_cosine_schedule,
-    )
+    from pointvit_tpu_torch.train import Trainer, build_optimizer, timm_cosine_schedule
 
     cfg = apf_preset_config("slim2", num_classes=TRAIN_CLASSES)  # dropout, drop-path 0.1
     models = {"kernel": AdaptPointFormer(**cfg), "plain": AdaptPointFormer(**cfg, implementation="torch")}
@@ -459,17 +483,42 @@ def train_phase(torch, dev, _build) -> dict:
         pts, lbl = shape_clouds(rng, TRAIN_BATCH, TRAIN_CLASSES)
         batches.append((torch.from_numpy(pts).to(dev), torch.from_numpy(lbl).to(dev)))
 
-    # The f32 reference of the first step: the plain path in f32 on the same
-    # weights, batch and draws (a generator seeded as the trainers' are).
-    ref = AdaptPointFormer(**{**cfg, "dtype": torch.float32}, implementation="torch")
-    ref.load_state_dict(models["kernel"].state_dict())
+    f32 = f32_first_step(torch, AdaptPointFormer(**{**cfg, "dtype": torch.float32}, implementation="torch"),
+                         models["kernel"], trainable, batches[0], LABEL_SMOOTHING, dev)
+    res = train_paths(torch, _build, trainers, batches, trainable)
+    res["grads"]["f32"] = f32
+    check_training(torch, "train", res, models, init, trainable, PRE_BN_BIASES, TRAINING_COUNTERS)
+    print(f"train step at batch {TRAIN_BATCH}: {step_line(res, TRAIN_BATCH)}", flush=True)
+    del trainers, models
+    torch.cuda.empty_cache()
+    return res
+
+
+def f32_first_step(torch, ref, model, trainable, batch, smoothing, dev) -> dict:
+    """The f32 reference of the first step: ``ref`` (the plain path in f32)
+    on ``model``'s weights takes the first batch with the trainers' draws (a
+    generator seeded as theirs are); returns its trainable gradients."""
+    from pointvit_tpu_torch.train import cross_entropy_loss, set_trainable
+
+    ref.load_state_dict(model.state_dict())
     set_trainable(ref, trainable)
     ref = ref.to(dev)
-    logits = ref(batches[0][0], train=True, generator=torch.Generator(device=dev).manual_seed(SEED))
-    cross_entropy_loss(logits, batches[0][1], LABEL_SMOOTHING).mean().backward()
-    res = {"losses": {}, "ms": {}, "grads": {
-        "f32": {n: p.grad.detach().clone() for n, p in ref.named_parameters() if n in trainable}}}
+    logits = ref(batch[0], train=True, generator=torch.Generator(device=dev).manual_seed(SEED))
+    cross_entropy_loss(logits, batch[1], smoothing).mean().backward()
+    grads = {n: p.grad.detach().clone() for n, p in ref.named_parameters() if n in trainable}
     del ref, logits
+    torch.cuda.empty_cache()
+    return grads
+
+
+def train_paths(torch, _build, trainers, batches, trainable) -> dict:
+    """The trainers (kernel and plain path) take the same batches: the
+    first WARMUP_STEPS untimed, keeping each path's first-step gradients of
+    the ``trainable`` tensors, then the rest timed by CUDA events, with the
+    kernel path's launch counts over the timed steps and the peak device
+    memory of the steps."""
+    torch.cuda.reset_peak_memory_stats()
+    res = {"losses": {}, "ms": {}, "grads": {}}
     for path, tr in trainers.items():
         loss, _, _ = tr.train_step(*batches[0])
         res["losses"][path] = [loss]
@@ -486,28 +535,37 @@ def train_phase(torch, dev, _build) -> dict:
             res["losses"][path].append(tr.train_step(*b)[0])
         t1.record()
         torch.cuda.synchronize()
-        res["ms"][path] = t0.elapsed_time(t1) / TIMED_STEPS
+        res["ms"][path] = t0.elapsed_time(t1) / (len(batches) - WARMUP_STEPS)
         if path == "kernel":
             res["counts"] = _build.launch_counts()
     res["losses"] = {k: [v.item() for v in vs] for k, vs in res["losses"].items()}
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return res
 
-    # -- checks ---------------------------------------------------------------
+
+def check_training(torch, label, res, models, init, trainable, zero, counters, unused=()) -> None:
+    """The training gates on ``train_paths``' result: finite losses, the
+    first loss and each trainable first-step gradient of the kernel path
+    against the plain path's and an f32 run's (``res['grads']['f32']``;
+    ``zero`` names the biases whose gradient is exactly zero), the trainable
+    parameters after the last step against each other and moved from
+    ``init``, frozen parameters bit-unchanged, the ``counters`` launched
+    during the timed steps and the ``unused`` not."""
     lk, lp = res["losses"]["kernel"], res["losses"]["plain"]
-    print(f"train losses: kernel path {lk}, plain path {lp}", flush=True)
+    print(f"{label} losses: kernel path {lk}, plain path {lp}", flush=True)
     if not all(np.isfinite(lk + lp)):
-        fail("a training loss is not finite")
+        fail(f"a {label} loss is not finite")
     d = abs(lk[0] - lp[0]) / abs(lp[0])
-    print(f"train: first loss |d| / |plain| {d:.3g} (bound {TRAIN_LOSS_REL_TOL})", flush=True)
+    print(f"{label}: first loss |d| / |plain| {d:.3g} (bound {TRAIN_LOSS_REL_TOL})", flush=True)
     if not d <= TRAIN_LOSS_REL_TOL:
-        fail("the first training loss disagrees between the kernel and plain paths")
+        fail(f"the first {label} loss disagrees between the kernel and plain paths")
     gk, gp, gf = (res["grads"][k] for k in ("kernel", "plain", "f32"))
-    worst_grad, worst_zero, tensors, live = grad_gates(torch, trainable, gk, gp)
+    worst_grad, worst_zero, tensors, live = grad_gates(torch, trainable, gk, gp, zero)
     flat = lambda g: torch.cat([g[n].float().flatten() for n in live])  # noqa: E731
     total = flat(gp).norm().item()
     worst_ratio = max((rel_l2(gk[n], gf[n]) / rel_l2(gp[n], gf[n]), n) for n in tensors)
     ek, ep = rel_l2(flat(gk), flat(gf)), rel_l2(flat(gp), flat(gf))
-    print(f"train: first-step gradients, {len(tensors)} trainable tensors: kernel vs plain path "
+    print(f"{label}: first-step gradients, {len(tensors)} trainable tensors: kernel vs plain path "
           f"worst relative L2 {worst_grad[0]:.3g} ({worst_grad[1]}; bound {TRAIN_GRAD_REL_TOL}); "
           f"(kernel vs f32) / (plain vs f32) worst {worst_ratio[0]:.3g} ({worst_ratio[1]}; bound "
           f"{TRAIN_GRAD_F32_RATIO}); all {len(live)} together: kernel vs f32 {ek:.3g}, plain vs "
@@ -517,42 +575,46 @@ def train_phase(torch, dev, _build) -> dict:
           f"bound {TRAIN_ZERO_GRAD_TOL})", flush=True)
     if not (worst_grad[0] <= TRAIN_GRAD_REL_TOL and worst_ratio[0] <= TRAIN_GRAD_F32_RATIO
             and ek <= TRAIN_GRAD_F32_RATIO * ep and worst_zero[0] <= TRAIN_ZERO_GRAD_TOL):
-        fail("first-step gradients of the kernel path disagree with the plain path's or f32's")
+        fail(f"first-step {label} gradients of the kernel path disagree with the plain path's or f32's")
+    dev = next(iter(models["kernel"].parameters())).device
     pk, pp = dict(models["kernel"].named_parameters()), dict(models["plain"].named_parameters())
     worst_param = max((rel_l2(pk[n], pp[n]), n) for n in trainable)
     moved = min(rel_l2(pp[n], init[n].to(dev)) for n in trainable)
-    print(f"train: trainable parameters after {WARMUP_STEPS + TIMED_STEPS} steps: worst "
+    print(f"{label}: trainable parameters after {len(lk)} steps: worst "
           f"relative L2 between the paths {worst_param[0]:.3g} ({worst_param[1]}; bound "
           f"{TRAIN_PARAM_REL_TOL}); smallest move from the init {moved:.3g}", flush=True)
     if not worst_param[0] <= TRAIN_PARAM_REL_TOL or not moved > 0:
-        fail("trainable parameters disagree between the paths after training, or did not move")
+        fail(f"{label}: trainable parameters disagree between the paths after training, or did not move")
     for path, m in models.items():
         for n, p in m.named_parameters():
             if n not in trainable and not torch.equal(p.detach().cpu(), init[n]):
-                fail(f"{path} path changed the frozen parameter {n}")
-    print(f"train: {len(init) - len(trainable)} frozen tensors bit-unchanged on both paths",
+                fail(f"{label}: the {path} path changed the frozen parameter {n}")
+    print(f"{label}: {len(init) - len(trainable)} frozen tensors bit-unchanged on both paths",
           flush=True)
-    print(f"train launches during the timed steps: {json.dumps(res['counts'])}", flush=True)
-    for name in TRAINING_COUNTERS:
+    print(f"{label} launches during the timed steps: {json.dumps(res['counts'])}", flush=True)
+    for name in counters:
         if res["counts"].get(name, 0) <= 0:
-            fail(f"the training path never launched the {name} kernel")
+            fail(f"the {label} path never launched the {name} kernel")
+    for name in unused:
+        if res["counts"].get(name, 0):
+            fail(f"the {label} path launched the {name} kernel, which training leaves")
+
+
+def step_line(res, batch) -> str:
     tk, tp = res["ms"]["kernel"], res["ms"]["plain"]
-    print(f"train step at batch {TRAIN_BATCH}: kernel path {tk:.3f} ms/step "
-          f"({TRAIN_BATCH * 1e3 / tk:.1f} clouds/s trained), plain path {tp:.3f} ms/step "
-          f"({TRAIN_BATCH * 1e3 / tp:.1f} clouds/s); peak device memory {res['peak_gib']:.2f} GiB",
-          flush=True)
-    del trainers, models
-    torch.cuda.empty_cache()
-    return res
+    return (f"kernel path {tk:.3f} ms/step ({batch * 1e3 / tk:.1f} clouds/s trained), plain path "
+            f"{tp:.3f} ms/step ({batch * 1e3 / tp:.1f} clouds/s); peak device memory "
+            f"{res['peak_gib']:.2f} GiB")
 
 
-def grad_gates(torch, trainable, gk, gp) -> tuple[tuple, tuple, list, list]:
+def grad_gates(torch, trainable, gk, gp, zero=PRE_BN_BIASES) -> tuple[tuple, tuple, list, list]:
     """Two paths' gradients (name -> tensor) over the trainable tensors:
     the worst relative L2 (value, name) over the tensors of more than one
-    element, the largest exactly-zero gradient (biases before a train-mode
-    BatchNorm) relative to the plain path's global norm over the others,
-    the tensors compared, and those others."""
-    zero = [n for n in trainable if n.endswith(PRE_BN_BIASES)]
+    element, the largest exactly-zero gradient (the names ending in
+    ``zero``: biases before a train-mode BatchNorm) relative to the plain
+    path's global norm over the others, the tensors compared, and those
+    others."""
+    zero = [n for n in trainable if n.endswith(zero)]
     live = [n for n in trainable if n not in zero]
     total = torch.cat([gp[n].float().flatten() for n in live]).norm().item()
     worst_zero = max((max(gk[n].float().norm().item(), gp[n].float().norm().item()) / total, n)
@@ -629,6 +691,136 @@ def train_long_phase(torch, dev, _build) -> dict:
     del models
     torch.cuda.empty_cache()
     return res
+
+
+def pix4point_train_phase(torch, dev, _build) -> dict:
+    """Pix4Point training at full width and depth (``build_model`` of the
+    ``train_pix4point.py`` config, bf16, seeded random weights): two
+    ``Trainer``s, on the kernel path and on the plain path, built as
+    ``Pix4PointTrainer`` builds its optimizer (``pix4point_optimizer``),
+    take the same batches of P4P_TRAIN_CONFIG's 64 clouds of 2048 points
+    with the same draws (FPS starts, then the head's dropouts), held as the
+    APF phase is, with an f32 first step as the gradient reference. Then one
+    kernel-path step split by CUDA events, and one step with the trunk
+    frozen. Returns the launch counts of the timed steps."""
+    from pointvit_tpu_torch.models import build_model
+    from pointvit_tpu_torch.train import Trainer
+    from pointvit_tpu_torch.train.pix4point_trainer import pix4point_optimizer
+
+    cfg = {**P4P_CONFIG, "pretrained": False, "frozen": False}
+    batch, classes = P4P_TRAIN_CONFIG["batch_size"], cfg["num_classes"]
+    models = {"kernel": build_model(cfg), "plain": build_model(cfg, implementation="torch")}
+    randomize(torch, models["kernel"], torch.Generator().manual_seed(SEED + 50))
+    models["plain"].load_state_dict(models["kernel"].state_dict())
+    init = {n: p.detach().clone() for n, p in models["kernel"].named_parameters()}
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_p4p_train_")
+
+    def trainer(model, frozen=False):
+        # one step an epoch: the steps walk the warm-up
+        sched, opt = pix4point_optimizer(model, P4P_TRAIN_CONFIG, 1, frozen=frozen)
+        return Trainer(model, train_dataset=None, test_dataset=None, optimizer=opt, schedule=sched,
+                       batch_size=batch, epochs=1, label_smoothing=0.0, output_dir=out_dir, seed=SEED,
+                       device=dev, train_loader=[], test_loader=[], save_config_snapshot=False)
+
+    trainers = {path: trainer(model) for path, model in models.items()}
+    trainable = sorted(n for n, p in models["kernel"].named_parameters() if p.requires_grad)
+    rng = np.random.default_rng(SEED + 50)
+    batches = []
+    for _ in range(WARMUP_STEPS + TIMED_STEPS):
+        pts, lbl = shape_clouds(rng, batch, classes, P4P_POINTS)
+        batches.append((torch.from_numpy(pts).to(dev), torch.from_numpy(lbl).to(dev)))
+    f32 = f32_first_step(torch, build_model({**cfg, "bf16": False}, implementation="torch"),
+                         models["kernel"], trainable, batches[0], 0.0, dev)
+    res = train_paths(torch, _build, trainers, batches, trainable)
+    res["grads"]["f32"] = f32
+    check_training(torch, "pix4point train", res, models, init, trainable, P4P_PRE_BN_BIASES,
+                   TRAINING_COUNTERS, P4P_TRAIN_UNUSED)
+    print(f"pix4point train step at batch {batch} of {P4P_POINTS} points: {step_line(res, batch)}",
+          flush=True)
+    del trainers["plain"], models["plain"]
+    torch.cuda.empty_cache()
+
+    train_step_split(torch, trainers["kernel"], *batches[0])  # the allocator refills after the plain path
+    split = train_step_split(torch, trainers["kernel"], *batches[1])
+    print(f"pix4point train step by stage, kernel path (CUDA events, ms): "
+          f"{json.dumps({k: round(v, 3) for k, v in split.items()})}, sum {sum(split.values()):.3f}",
+          flush=True)
+
+    busy = device_time_by_kernel(torch, lambda: trainers["kernel"].train_step(*batches[2]))
+    print(f"pix4point train step under torch.profiler, kernel path: {busy['wall_ms']:.3f} ms on the "
+          f"host's clock, {busy['device_ms']:.3f} ms of kernels ({busy['device_ms'] / busy['wall_ms']:.1%} "
+          f"busy) in {busy['launches']} launches; most device time: {json.dumps(busy['top'])}",
+          flush=True)
+
+    model = models["kernel"]
+    tr = trainer(model, frozen=True)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    loss, _, _ = tr.train_step(*batches[1])
+    torch.cuda.synchronize()
+    trunk = [n for n in before if n.startswith(("model.blocks.", "model.norm."))]
+    moved = [n for n, p in model.named_parameters() if not torch.equal(p, before[n])]
+    print(f"pix4point train, trunk frozen: loss {loss.item():.6g}; {len(trunk)} trunk tensors, "
+          f"{len(set(trunk) & set(moved))} moved; {len(moved)} tensors moved", flush=True)
+    if not np.isfinite(loss.item()) or set(trunk) & set(moved):
+        fail("pix4point train with the trunk frozen changed a trunk tensor or lost its loss")
+    if not {"model.cls_token", "cls_head.out.weight"} <= set(moved):
+        fail("pix4point train with the trunk frozen did not move cls_token and the head")
+    shutil.rmtree(out_dir)
+    del tr, trainers, models, model
+    torch.cuda.empty_cache()
+    return res
+
+
+def device_time_by_kernel(torch, run, top: int = 8) -> dict:
+    """``run()`` once under ``torch.profiler`` (CUDA activity): its time on
+    the host's clock (synchronised), the device time of its kernels summed,
+    their launch count and the ``top`` kernels by device time (ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    ms = {}
+    for e in kernels:
+        ms[e.key[:60]] = ms.get(e.key[:60], 0.0) + e.device_time_total / 1e3
+    best = sorted(ms.items(), key=lambda kv: -kv[1])[:top]
+    return {"wall_ms": wall, "device_ms": sum(ms.values()), "launches": sum(e.count for e in kernels),
+            "top": {k: round(v, 3) for k, v in best}}
+
+
+def train_step_split(torch, tr, pts, lbl) -> dict:
+    """One Pix4Point training step of ``tr`` (``Trainer.train_step``'s work,
+    step for step) split by CUDA events that hooks on the model record:
+    tokenizer + P3 stage (``patch_embed``), blocks (proj, pos MLP, cls and
+    the blocks), head and loss, backward, optimizer."""
+    from pointvit_tpu_torch.train import cross_entropy_loss
+
+    vit = tr.model.model
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    record = lambda i: lambda *_: ev[i].record()  # noqa: E731
+    hooks = [vit.patch_embed.register_forward_pre_hook(record(0)),
+             vit.patch_embed.register_forward_hook(record(1)),
+             vit.blocks[-1].register_forward_hook(record(2))]
+    try:
+        tr.optimizer.zero_grad()
+        logits = tr.model(pts, train=True, generator=tr.generator)
+        loss = cross_entropy_loss(logits, lbl, tr.label_smoothing).mean()
+        ev[3].record()
+        loss.backward()
+        ev[4].record()
+        tr.optimizer.step()
+        ev[5].record()
+    finally:
+        for h in hooks:
+            h.remove()
+    torch.cuda.synchronize()
+    names = ("tokenizer_p3", "blocks", "head_loss", "backward", "optimizer")
+    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
 
 
 def attention_bwd_phase(torch, label, qkv, heads, seed, iters=5, plain_iters=1) -> dict:
@@ -1808,6 +2000,11 @@ def main() -> None:
     train_long_counts = train_long_phase(torch, dev, _build)["counts"]
     print(f"npoint {LONGER_NPOINT} training phase: {time.perf_counter() - t_train:.1f} s", flush=True)
 
+    # -- Pix4Point (vit_small) training at full width, batch 64 x 2048 -------
+    t_train = time.perf_counter()
+    p4p_train_counts = pix4point_train_phase(torch, dev, _build)["counts"]
+    print(f"pix4point training phase: {time.perf_counter() - t_train:.1f} s", flush=True)
+
     # -- the third path: Pix4Point (vit_small) serving at full width ---------
     t_p4p = time.perf_counter()
     p4p = pix4point_phase(torch, dev, _build)
@@ -2320,8 +2517,8 @@ def main() -> None:
               f"torch._int_mm); {res['ops'] / res['ms'] / 1e9:.1f} TOP/s; its row quantizer alone "
               f"{res['quantizer_ms']:.4f} ms; the bf16 GEMM kernel at this shape "
               f"{res['gemm_ms']:.4f} ms", flush=True)
-    paths = (counts, train_counts, train_long_counts, p4p["counts"], rend["counts"], quant["counts"],
-             ab_counts, knn_wide_counts, long["counts"], longer["counts"], p4p_off_counts, apf32["counts"],
+    paths = (counts, train_counts, train_long_counts, p4p_train_counts, p4p["counts"], rend["counts"],
+             quant["counts"], ab_counts, knn_wide_counts, long["counts"], longer["counts"], p4p_off_counts, apf32["counts"],
              p4p32["counts"], small["serve_counts"], small["train_counts"], k24["counts"])
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

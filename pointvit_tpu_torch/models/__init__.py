@@ -5,10 +5,16 @@ from pointvit_tpu_torch.models.apf import (
     APF_PRESETS,
     AdaptPointFormer,
     apf_preset_config,
+    apf_serving_preset,
     apf_trainable_mask,
 )
 from pointvit_tpu_torch.models.factory import build_model, detect_family
-from pointvit_tpu_torch.models.pix4point import VIT_PRESETS, PointViT, Pix4Point
+from pointvit_tpu_torch.models.pix4point import (
+    VIT_PRESETS,
+    PointViT,
+    Pix4Point,
+    pix4point_trainable_mask,
+)
 from pointvit_tpu_torch.models.renderer import (
     TORCHVISION_VIT_PRESETS,
     PointCloudRendererClassifier,
@@ -25,7 +31,9 @@ __all__ = [
     "VIT_PRESETS",
     "ViewTransformationNetwork",
     "apf_preset_config",
+    "apf_serving_preset",
     "apf_trainable_mask",
     "build_model",
     "detect_family",
+    "pix4point_trainable_mask",
 ]

@@ -42,9 +42,11 @@ from pointvit_tpu_torch.nn.layers import Dropout, layer_norm
 from pointvit_tpu_torch.nn.pointnet import GroupFeatureEncoder
 from pointvit_tpu_torch.nn.vit import APFBlock
 from pointvit_tpu_torch.ops.block_kernel import LN_EPS
+from pointvit_tpu_torch.ops.fps import random_starts
 from pointvit_tpu_torch.ops.group import apf_group
 
-__all__ = ["AdaptPointFormer", "APF_PRESETS", "apf_preset_config", "apf_trainable_mask"]
+__all__ = ["AdaptPointFormer", "APF_PRESETS", "apf_preset_config", "apf_serving_preset",
+           "apf_trainable_mask"]
 
 # The benchmark's preset table (bench.py:93-103): overrides of the APF ViT-B
 # configuration below. 'slim2' is the served default.
@@ -69,6 +71,16 @@ def apf_preset_config(name: str = "slim2", **overrides) -> dict:
         depth=12, num_heads=12, dtype=torch.bfloat16,
     )
     cfg.update(APF_PRESETS[name])
+    cfg.update(overrides)
+    return cfg
+
+
+def apf_serving_preset(**overrides) -> dict:
+    """Constructor kwargs of the JAX package's documented serving
+    configuration (``pointvit_tpu/models/apf.py:117-134``): the
+    reference-exact model in bf16 with the encoder's second stack at width
+    768 instead of 2E, updated with ``overrides``."""
+    cfg = dict(dtype=torch.bfloat16, encoder_second_width=768)
     cfg.update(overrides)
     return cfg
 
@@ -127,10 +139,7 @@ class AdaptPointFormer(nn.Module):
         if self.quantized and train:
             raise ValueError("quantized=True is an inference-only mode (int8 rounding has no "
                              "useful gradient); construct with quantized=False for training")
-        start = None
-        if train and generator is not None:
-            B, N = points.shape[:2]
-            start = torch.randint(0, N, (B,), generator=generator, device=generator.device)
+        start = random_starts(points, generator) if train and generator is not None else None
         neighborhood, _ = apf_group(
             points, points[..., :3], self.npoint, self.nsample, start=start,
             implementation=self.implementation,

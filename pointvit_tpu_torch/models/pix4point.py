@@ -4,15 +4,25 @@ Counterpart of ``pointvit_tpu/models/pix4point.py`` (``:26-194``): P3Embed
 (FPS + kNN conv tokenizer, 2048 → 512 tokens of width 256) → ``proj`` to the
 ViT width → learned 3D positional MLP → cls token prepended → ``depth`` ViT
 blocks with the positional embedding re-added before *every* block → final
-LayerNorm → global feature [max over tokens ‖ cls token] → ``ClsHead``.
-Module names follow the flax names (``model.patch_embed``, ``model.proj``,
-``model.pos_embed``, ``model.cls_token``, ``model.cls_pos``,
-``model.blocks.{i}``, ``model.norm``, ``cls_head``), so the weight bridge
+LayerNorm → global feature (``global_features``: by default [max over
+tokens ‖ cls token]) → ``ClsHead``. Module names follow the flax names
+(``model.patch_embed``, ``model.proj``, ``model.pos_embed``,
+``model.cls_token``, ``model.cls_pos``, ``model.blocks.{i}``,
+``model.norm``, ``cls_head``), so the weight bridge
 (:mod:`pointvit_tpu_torch.convert`) maps a JAX tree one to one.
 
 ``implementation=None`` runs the kernel wrappers (the CUDA kernels for CUDA
-tensors); ``'torch'`` runs every kernel's plain version on any device. The
-model serves; training (ROADMAP A8) and the MoE trunk (A11) are not ported.
+tensors); ``'torch'`` runs every kernel's plain version on any device.
+
+``forward(points, train=True, generator=g)`` is the training forward: FPS
+starts at a random point of every cloud (drawn from ``g``), the P3 stage
+and the head use batch statistics, the blocks run unfused (attention
+through the forward and backward kernels on the card) and every dropout
+draws from ``g``. Random draws, in order: the FPS starts, each block's
+(none at the trunk's dropout 0, the model's default, as in JAX), the
+head's two dropouts. Freezing is ``requires_grad``:
+:func:`pix4point_trainable_mask` names the parameters that train. The MoE
+trunk (ROADMAP A11) is not ported.
 """
 
 from __future__ import annotations
@@ -26,7 +36,7 @@ from pointvit_tpu_torch.nn.pointnet import P3Embed, PosEmbedMLP
 from pointvit_tpu_torch.nn.vit import ViTBlock
 from pointvit_tpu_torch.ops.block_kernel import LN_EPS
 
-__all__ = ["PointViT", "Pix4Point", "VIT_PRESETS"]
+__all__ = ["PointViT", "Pix4Point", "VIT_PRESETS", "pix4point_trainable_mask"]
 
 # Depth / heads / width of the timm backbones the reference names.
 VIT_PRESETS = {
@@ -39,39 +49,57 @@ VIT_PRESETS = {
 
 
 class PointViT(nn.Module):
-    """Point tokenizer + ViT trunk → the global feature (B, 2E): max-pooled
-    tokens first, then the cls token (``global_features='max,cls'``)."""
+    """Point tokenizer + ViT trunk → the global feature (B, n·E): for each
+    comma-separated entry of ``global_features``, in order, the cls token
+    and/or the max over the tokens, as the JAX loop takes them
+    (``pix4point.py:135-142``); the default ``'max,cls'`` gives [max ‖ cls].
+    ``in_channels`` is the width of the ``features`` input (the coordinates
+    themselves when it is None); ``dropout_rate`` goes to every block."""
 
     def __init__(self, embed_dim: int = 384, depth: int = 12, num_heads: int = 6,
-                 k_neighbors: int = 16, dtype: torch.dtype = torch.float32,
+                 k_neighbors: int = 16, in_channels: int = 3, global_features: str = "max,cls",
+                 dropout_rate: float = 0.0, dtype: torch.dtype = torch.float32,
                  implementation: str | None = None) -> None:
         super().__init__()
         self.dtype = dtype
+        self.global_features = global_features
+        self.num_features = embed_dim * sum(
+            ("cls" in t) + ("max" in t) for t in global_features.split(","))
         # PointViT passes no embed_dim to P3Embed: its tokens are 256 wide.
-        self.patch_embed = P3Embed(k=k_neighbors, dtype=dtype, implementation=implementation)
+        self.patch_embed = P3Embed(in_channels, k=k_neighbors, dtype=dtype,
+                                   implementation=implementation)
         self.proj = nn.Linear(self.patch_embed.embed_dim, embed_dim)
         self.pos_embed = PosEmbedMLP(embed_dim, dtype=dtype)
         self.cls_token = nn.Parameter(0.02 * torch.randn(1, 1, embed_dim))
         self.cls_pos = nn.Parameter(0.02 * torch.randn(1, 1, embed_dim))
         self.blocks = nn.ModuleList(
-            ViTBlock(embed_dim, num_heads, dtype=dtype, implementation=implementation)
+            ViTBlock(embed_dim, num_heads, dtype=dtype, implementation=implementation,
+                     dropout_rate=dropout_rate)
             for _ in range(depth)
         )
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
 
-    def forward(self, points: torch.Tensor) -> torch.Tensor:
+    def forward(self, points: torch.Tensor, features: torch.Tensor | None = None, *,
+                train: bool = False, generator: torch.Generator | None = None) -> torch.Tensor:
         B = points.shape[0]
-        # The reference clones the coordinates as the features.
-        centers, tokens = self.patch_embed(points, points)
+        if features is None:  # the reference clones the coordinates as the features
+            features = points
+        centers, tokens = self.patch_embed(points, features, train=train, generator=generator)
         x = linear(tokens, self.proj)
         pos = self.pos_embed(centers)
         E = x.shape[-1]
         x = torch.cat([self.cls_token.expand(B, 1, E).to(x.dtype), x], dim=1)
         pos = torch.cat([self.cls_pos.expand(B, 1, E).to(pos.dtype), pos], dim=1).contiguous()
         for block in self.blocks:  # pos is re-added before every block
-            x = block(x, pos=pos)
+            x = block(x, pos=pos, train=train, generator=generator)
         x = layer_norm(x, self.norm)
-        return torch.cat([x[:, 1:].amax(dim=1), x[:, 0]], dim=-1)
+        feats = []
+        for token_type in self.global_features.split(","):
+            if "cls" in token_type:
+                feats.append(x[:, 0])
+            if "max" in token_type:
+                feats.append(x[:, 1:].amax(dim=1))
+        return torch.cat(feats, dim=-1)
 
 
 class Pix4Point(nn.Module):
@@ -87,7 +115,7 @@ class Pix4Point(nn.Module):
                                       "(ROADMAP A11)")
         self.model = PointViT(embed_dim, depth, num_heads, k_neighbors, dtype=dtype,
                               implementation=implementation)
-        self.cls_head = ClsHead(2 * embed_dim, num_classes)
+        self.cls_head = ClsHead(self.model.num_features, num_classes)
 
     @classmethod
     def from_pretrained_name(cls, pretrained_model: str, **kwargs) -> "Pix4Point":
@@ -98,8 +126,20 @@ class Pix4Point(nn.Module):
             raise ValueError(f"unknown backbone preset: {pretrained_model!r}")
         return cls(**{**preset, **kwargs})
 
-    def forward(self, points: torch.Tensor, *, train: bool = False) -> torch.Tensor:
-        if train:
-            raise NotImplementedError(
-                "Pix4Point(train=True) is not ported yet (ROADMAP A8: Pix4Point training)")
-        return self.cls_head(self.model(points))
+    def forward(self, points: torch.Tensor, *, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        feat = self.model(points, train=train, generator=generator)
+        return self.cls_head(feat, train=train, generator=generator)
+
+
+def pix4point_trainable_mask(model: nn.Module, *, frozen: bool = False) -> set[str]:
+    """Names of the trainable Pix4Point parameters
+    (``pointvit_tpu/models/pix4point.py:197-223``): every parameter, or with
+    ``frozen=True`` all but the ViT trunk's blocks and final norm
+    (``model.blocks.*``, ``model.norm.*``). ``cls_token`` and ``cls_pos``
+    stay trainable, as in JAX and the reference."""
+    names = [name for name, _ in model.named_parameters()]
+    if not frozen:
+        return set(names)
+    trunk = ("blocks", "norm")
+    return {n for n in names if not any(part in trunk for part in n.split("."))}

@@ -148,17 +148,24 @@ class Attention(nn.Module):
 
 
 class Mlp(nn.Module):
-    """fc1 → exact GELU → fc2 (no dropout: the APF block passes none); both
-    products int8 when ``quantized``."""
+    """fc1 → exact GELU → dropout → fc2 → dropout (timm layout,
+    ``pointvit_tpu/nn/layers.py:35-55``); both products int8 when
+    ``quantized``. ``dropout_rate`` is 0 by default, as the APF block passes
+    none; the Pix4Point trunk's blocks pass theirs."""
 
     def __init__(self, dim: int, hidden: int, quantized: bool = False,
-                 implementation: str | None = None) -> None:
+                 implementation: str | None = None, dropout_rate: float = 0.0) -> None:
         super().__init__()
         self.fc1 = dense(quantized, dim, hidden, True, implementation)
         self.fc2 = dense(quantized, hidden, dim, True, implementation)
+        self.dropout = Dropout(dropout_rate)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return linear(F.gelu(linear(x, self.fc1), approximate="none"), self.fc2)
+    def forward(self, x: torch.Tensor, *, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """Random draws, in order: after the GELU, after fc2."""
+        kw = dict(train=train, generator=generator)
+        h = self.dropout(F.gelu(linear(x, self.fc1), approximate="none"), **kw)
+        return self.dropout(linear(h, self.fc2), **kw)
 
 
 class AdapterLayer(nn.Module):

@@ -38,6 +38,7 @@ from pointvit_tpu_torch.ops.encoder_kernel import (
     fused_group_encoder,
     reference_folded_encoder,
 )
+from pointvit_tpu_torch.ops.fps import random_starts
 from pointvit_tpu_torch.ops.group import p3_group
 from pointvit_tpu_torch.ops.p3_kernel import (
     fold_p3_stage_params,
@@ -128,7 +129,14 @@ class P3Embed(nn.Module):
     other shape runs :meth:`stage_unfused` (eval-mode BN, eps 1e-5) on
     either device, as the JAX stage runs its unfused stack there
     (``nn/pointnet.py:166-186``): one cloud of 1000 points (S = 250) does.
-    FPS starts at point 0; training is not ported yet.
+
+    ``train=True`` runs :meth:`stage_unfused` with train-mode BatchNorm
+    (batch statistics, running statistics updated with flax's conventions,
+    :func:`~pointvit_tpu_torch.nn.layers.batch_norm`), as the JAX stage
+    leaves its fused kernel when training (``nn/pointnet.py:168-171``).
+    FPS starts at point 0, or, in training with a generator, at a random
+    point of every cloud drawn from it (one draw per stage), as the JAX
+    stage draws its starts from the ``'fps'`` stream.
     """
 
     def __init__(self, in_channels: int = 3, k: int = 16, layers: int = 4, embed_dim: int = 256,
@@ -154,35 +162,37 @@ class P3Embed(nn.Module):
             self.add_module(f"s0_conv2_bn{i}", bn(w))
             width = w
 
-    def forward(self, points: torch.Tensor, features: torch.Tensor, *,
-                train: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, points: torch.Tensor, features: torch.Tensor, *, train: bool = False,
+                generator: torch.Generator | None = None) -> tuple[torch.Tensor, torch.Tensor]:
         """points (B, N, 3), features (B, N, C_in) → (centres (B, N/4, 3),
         tokens (B, N/4, embed_dim) in the module's dtype)."""
-        if train:
-            raise NotImplementedError(
-                "P3Embed(train=True) is not ported yet (ROADMAP A8: Pix4Point training)")
+        start = random_starts(points, generator) if train and generator is not None else None
         # The reference fixes the ratio at 4 (pix4point.py:174).
-        centers, dp, fj = p3_group(points, features, points.shape[1] // 4, self.k,
+        centers, dp, fj = p3_group(points, features, points.shape[1] // 4, self.k, start=start,
                                    implementation=self.implementation)
         x = torch.cat([dp, fj], dim=-1).to(self.dtype)  # (B, S, k, 3 + C_in)
+        if train:
+            return centers, self.stage_unfused(x, train=True)
         B, S, K, C = x.shape
         if self.layers == 4 and (B * S) % 16 == 0:
             stage = reference_folded_p3 if self.implementation == "torch" else fused_p3_embed
             return centers, stage(x.reshape(B * S, K, C), fold_p3_stage_params(self)).reshape(B, S, -1)
         return centers, self.stage_unfused(x)
 
-    def stage_unfused(self, x: torch.Tensor) -> torch.Tensor:
+    def stage_unfused(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
         """The stage's conv stacks layer by layer, (B, S, K, C) → (B, S, dim),
-        with BatchNorm on its running statistics."""
+        with BatchNorm on batch statistics when ``train``, else on its
+        running statistics."""
+        bn = lambda t, m: batch_norm(t, m, train=train)  # noqa: E731
         half = self.layers // 2
         for i in range(half):
             x = linear(x, getattr(self, f"s0_conv1_{i}"))
-        x = torch.relu(batch_norm(x, self.s0_conv1_bn, train=False))
+        x = torch.relu(bn(x, self.s0_conv1_bn))
         g = x.amax(dim=-2, keepdim=True)
         x = torch.cat([g.expand_as(x), x], dim=-1)
         for i in range(half):
             x = linear(x, getattr(self, f"s0_conv2_{i}"))
-            x = torch.relu(batch_norm(x, getattr(self, f"s0_conv2_bn{i}"), train=False))
+            x = torch.relu(bn(x, getattr(self, f"s0_conv2_bn{i}")))
         return x.amax(dim=-2)
 
 

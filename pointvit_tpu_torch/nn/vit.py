@@ -155,11 +155,16 @@ class ViTBlock(nn.Module):
     the card the kernel chain, with ``implementation='torch'`` or on the CPU
     its plain version. Other shapes take :meth:`forward_unfused`, as the JAX
     block leaves its fused kernels there (``nn/vit.py:128-150``); its
-    attention kernel takes any S. Training is not ported yet.
+    attention kernel takes any S. So does ``train=True``, as the JAX block
+    leaves its fused kernels for a stochastic call (``nn/vit.py:70-71``):
+    the attention is ``fused_mha_qkv`` (the forward and backward kernels on
+    the card), and the dropout (``dropout_rate``, in the MLP) and drop-path
+    (``drop_path_rate``, on both branches) draw from the generator given.
     """
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 dtype: torch.dtype = torch.float32, implementation: str | None = None) -> None:
+                 dtype: torch.dtype = torch.float32, implementation: str | None = None,
+                 dropout_rate: float = 0.0, drop_path_rate: float = 0.0) -> None:
         super().__init__()
         if implementation not in (None, "torch"):
             raise ValueError(f"unknown implementation: {implementation!r}")
@@ -171,35 +176,37 @@ class ViTBlock(nn.Module):
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
         self.attn = Attention(dim, num_heads, implementation=implementation)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dropout_rate=dropout_rate)
+        self.drop_path = DropPath(drop_path_rate)
         self._launch = LaunchWeights()
 
     def forward(self, x: torch.Tensor, *, pos: torch.Tensor | None = None,
-                train: bool = False) -> torch.Tensor:
+                train: bool = False, generator: torch.Generator | None = None) -> torch.Tensor:
         """(B, S, E) → (B, S, E) in the block's dtype; ``pos`` (B, S, E) or
         (1, S, E) is added first, in that dtype."""
-        if train:
-            raise NotImplementedError(
-                "ViTBlock(train=True) is not ported yet (ROADMAP A8: Pix4Point training)")
         x = x.to(self.dtype)
         if pos is not None:
             pos = pos.to(self.dtype)
-        if not vit_block_shapes_ok(*x.shape[-2:], self.num_heads):
-            return self.forward_unfused(x, pos=pos)
+        if train or not vit_block_shapes_ok(*x.shape[-2:], self.num_heads):
+            return self.forward_unfused(x, pos=pos, train=train, generator=generator)
         weights = self._launch.get(self, lambda: vit_block_weights(self, self.dtype), self.dtype)
         if self.implementation == "torch":
             return reference_vit_block(x, weights, self.num_heads, pos)
         return fused_vit_block(x, weights, self.num_heads, pos)
 
-    def forward_unfused(self, x: torch.Tensor, *, pos: torch.Tensor | None = None) -> torch.Tensor:
+    def forward_unfused(self, x: torch.Tensor, *, pos: torch.Tensor | None = None,
+                        train: bool = False,
+                        generator: torch.Generator | None = None) -> torch.Tensor:
         """The block through its layer modules, one plain op at a time (with
-        the attention kernel on the card), step for step the JAX block's
+        the attention kernels on the card), step for step the JAX block's
         non-fused branch: ``pos`` added in x's dtype, then the two
-        residual branches."""
+        residual branches. Random draws, in order: the attention branch's
+        drop-path, the MLP's two dropouts, the MLP branch's drop-path."""
+        kw = dict(train=train, generator=generator)
         if pos is not None:
             x = x + pos.to(x.dtype)
-        x = x + self.attn(layer_norm(x, self.norm1))
-        return x + self.mlp(layer_norm(x, self.norm2))
+        x = x + self.drop_path(self.attn(layer_norm(x, self.norm1)), **kw)
+        return x + self.drop_path(self.mlp(layer_norm(x, self.norm2), **kw), **kw)
 
 
 class SerialAdapterBlock(nn.Module):

@@ -13,7 +13,7 @@ import torch
 
 from pointvit_tpu_torch.ops import fps_kernel
 
-__all__ = ["farthest_point_sample", "fps_gather"]
+__all__ = ["farthest_point_sample", "fps_gather", "random_starts"]
 
 
 def farthest_point_sample(
@@ -46,6 +46,14 @@ def farthest_point_sample(
     if implementation is not None:
         raise ValueError(f"unknown implementation: {implementation!r}")
     return fps_kernel.fps(xyz, num_samples, start)
+
+
+def random_starts(points: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """(B,) FPS start indices of the (B, N, C) clouds, uniform over the N
+    points and drawn from ``generator`` on its own device: the port's
+    counterpart of the JAX package's key → start (``ops/fps.py:104-107``)."""
+    B, N = points.shape[:2]
+    return torch.randint(0, N, (B,), generator=generator, device=generator.device)
 
 
 def fps_gather(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

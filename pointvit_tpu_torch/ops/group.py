@@ -9,8 +9,9 @@ Counterpart of ``pointvit_tpu/ops/group.py``:
   centre is a support point at distance 0, and its packed key has the lowest
   index among exact duplicates (``group.py:117-119``).
 - :func:`p3_group` (one Pix4Point P3Embed stage, ``group.py:137-182``): FPS
-  centres and the kNN gather of points and features, with the grouped
-  coordinates absolute unless ``relative_pos``.
+  centres from ``start`` (index 0 without it) and the kNN gather of points
+  and features, with the grouped coordinates absolute unless
+  ``relative_pos``.
 
 Both take the packed-key kNN kernel where the JAX package takes its Pallas
 kNN (lane-aligned N ≤ 2048, :func:`_packed_knn_ok`) and the exact top-k of
@@ -24,7 +25,7 @@ import torch
 
 from pointvit_tpu_torch.ops import knn_kernel
 from pointvit_tpu_torch.ops.fps import farthest_point_sample, fps_gather
-from pointvit_tpu_torch.ops.knn import knn_gather, knn_indices
+from pointvit_tpu_torch.ops.knn import knn_gather, knn_group, knn_indices
 from pointvit_tpu_torch.ops.morton import morton_argsort
 
 __all__ = ["apf_group", "p3_group"]
@@ -86,6 +87,7 @@ def p3_group(
     num_samples: int,
     k: int,
     *,
+    start: torch.Tensor | None = None,
     relative_pos: bool = False,
     implementation: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -96,6 +98,8 @@ def p3_group(
         features: (B, N, D) features.
         num_samples: S FPS centres.
         k: neighbours per centre.
+        start: (B,) FPS start indices (the JAX package's key → start,
+            ``ops/fps.py:104-107``); None starts every cloud at index 0.
         relative_pos: return centre-relative grouped coordinates; False
             (the reference) keeps them absolute.
         implementation: None (kernel wrappers) or 'torch' (plain versions).
@@ -108,8 +112,7 @@ def p3_group(
     """
     points = points.to(torch.float32).contiguous()
     feats = features.to(torch.float32)
-    # FPS starts at index 0, as the JAX package's does without a PRNG key.
-    fps_idx = farthest_point_sample(points, num_samples, implementation=implementation)
+    fps_idx = farthest_point_sample(points, num_samples, start, implementation=implementation)
     centers = fps_gather(points, fps_idx).contiguous()
     if _packed_knn_ok(points.shape[1]):
         combined = torch.cat([points, feats], dim=-1).contiguous()
@@ -117,8 +120,7 @@ def p3_group(
         _, grouped = group(points, centers, combined, k)
         grouped_points, grouped_features = grouped[..., :3], grouped[..., 3:]
     else:
-        idx = knn_indices(centers, points, k)
-        grouped_points, grouped_features = knn_gather(points, idx), knn_gather(feats, idx)
+        grouped_points, grouped_features = knn_group(points, centers, feats, k)
     if relative_pos:
         grouped_points = grouped_points - centers[:, :, None, :]
     return centers, grouped_points, grouped_features

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["square_distance", "knn_indices", "knn_gather"]
+__all__ = ["square_distance", "knn_indices", "knn_gather", "knn_group"]
 
 
 def square_distance(query: torch.Tensor, support: torch.Tensor) -> torch.Tensor:
@@ -38,3 +38,14 @@ def knn_gather(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     C = values.shape[-1]
     flat = idx.reshape(B, S * K).to(torch.int64)
     return torch.gather(values, 1, flat[..., None].expand(-1, -1, C)).reshape(B, S, K, C)
+
+
+def knn_group(points: torch.Tensor, centroids: torch.Tensor, features: torch.Tensor,
+              k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k nearest points and their features around each centroid: an
+    exact top-k and two gathers (``pointvit_tpu/ops/knn.py:76-96``).
+    points (B, N, 3), centroids (B, S, 3), features (B, N, D) →
+    (grouped_points (B, S, k, 3), absolute as in the reference,
+    grouped_features (B, S, k, D))."""
+    idx = knn_indices(centroids, points, k)
+    return knn_gather(points, idx), knn_gather(features, idx)

@@ -1,11 +1,52 @@
-"""Experiment-config snapshot (counterpart of ``pointvit_tpu/train/train_utils.py``)."""
+"""Experiment-config snapshot and the native loaders (counterpart of
+``pointvit_tpu/train/train_utils.py``)."""
 
 from __future__ import annotations
 
 import os
 from datetime import datetime
 
-__all__ = ["save_configs"]
+from pointvit_tpu_torch.data.loader import FastLoader
+from pointvit_tpu_torch.data.native import BatchAugmenter, native_available
+
+__all__ = ["native_loaders", "save_configs"]
+
+
+def native_loaders(
+    train_dataset,
+    test_dataset,
+    batch_size: int,
+    dataset_config: dict,
+    train_config: dict,
+    seed: int = 0,
+):
+    """``FastLoader`` pairs over the batch augmenter for the standard
+    (normalise + custom-augment) pipeline (``train_utils.py:11-52``), or
+    (None, None) when ``train_config['native_pipeline']`` is False, the
+    sampling mode needs per-item work, or the native library is missing.
+    The Pix4Point trainer uses them; the APF trainer builds its own with
+    its dict transforms on top."""
+    if not train_config.get("native_pipeline", True):
+        return None, None
+    if dataset_config.get("sampling_method", "all") not in ("all", "fps"):
+        return None, None
+    if not native_available():
+        return None, None
+    normalize = dataset_config.get("normalize", False)
+    train_loader = FastLoader.for_dataset(
+        train_dataset, batch_size,
+        BatchAugmenter(
+            normalize=normalize,
+            custom=dataset_config.get("use_custom_augmentation", False),
+            custom_prob=dataset_config.get("augmentation_probability", 0.2),
+            seed=seed,
+        ),
+        shuffle=True, drop_last=True, seed=seed,
+    )
+    test_loader = FastLoader.for_dataset(
+        test_dataset, batch_size, BatchAugmenter(normalize=normalize, seed=seed + 1), seed=seed + 1,
+    )
+    return train_loader, test_loader
 
 
 def save_configs(

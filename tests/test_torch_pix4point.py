@@ -315,9 +315,6 @@ def test_build_model_builds_the_jax_architecture(cfg):
 
 
 def test_what_is_not_ported_raises():
-    model = Pix4Point(**CFG)
-    with pytest.raises(NotImplementedError, match="A8"):
-        model(torch.zeros(1, N_POINTS, 3), train=True)
     with pytest.raises(NotImplementedError, match="A11"):
         Pix4Point(**CFG, moe_experts=4)
     with pytest.raises(NotImplementedError, match="A9"):  # the renderer serves; it does not train

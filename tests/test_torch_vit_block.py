@@ -136,10 +136,24 @@ def test_pos_layer_norm_plain_version():
         block_kernel.pos_layer_norm(xb, pb.repeat(2, 1)[:4], torch.from_numpy(g), torch.from_numpy(b))
 
 
-def test_block_refuses_training_and_other_mlp_ratios():
-    blk = ViTBlock(E, HEADS)
-    with pytest.raises(NotImplementedError, match="A8"):
-        blk(torch.zeros(1, S, E), train=True)
+def test_block_refuses_training_and_other_mlp_ratios(monkeypatch):
+    """Training is ported (ROADMAP A8): ``train=True`` takes the unfused
+    forward inside the blocks' gate too, as the JAX block leaves its fused
+    kernels for a stochastic call (at dropout 0 the same function as the
+    fused chain); an MLP ratio other than 4 is refused."""
+    from pointvit_tpu_torch.nn import vit
+
+    x, poses, _, blk = _case(6)
+    taken = []
+    unfused = vit.ViTBlock.forward_unfused
+    monkeypatch.setattr(vit.ViTBlock, "forward_unfused",
+                        lambda self, x, **kw: taken.append(kw["train"]) or unfused(self, x, **kw))
+    pos = torch.from_numpy(poses["per_cloud"])
+    with torch.no_grad():
+        got = blk(torch.from_numpy(x), pos=pos, train=True)
+        want = blk(torch.from_numpy(x), pos=pos)
+    assert taken == [True]
+    _assert_rel(got, want)
     with pytest.raises(ValueError, match="4·dim"):
         ViTBlock(E, HEADS, mlp_ratio=2.0)
 
