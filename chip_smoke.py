@@ -39,7 +39,22 @@
    JAX does). One kernel-path step is split by CUDA events into tokenizer +
    P3, blocks, head + loss, backward and optimizer, and one step with the
    trunk frozen must leave every ``model.blocks.*`` and ``model.norm.*``
-   tensor bit-unchanged and move ``cls_token`` and the head.
+   tensor bit-unchanged and move ``cls_token`` and the head. Then renderer
+   training: ``build_model`` of the ``train_renderer.py`` config (vit_b_16,
+   12 blocks x 12 heads, 6 learned views of 224 x 224, bf16) at full width
+   and depth with seeded random weights, on both paths, 7 steps of 16 x 2048
+   unit-sphere clouds (96 images) with the optimizer ``RendererTrainer``
+   builds (``renderer_optimizer``: constant lr 5e-4, wd 5e-2, no clip, only
+   the ViT's adapters trained inside it) and the head's dropout drawn as
+   above, an f32 first step as the gradient reference, held by the same
+   gates; the frozen ViT tensors must stay bit-unchanged, every view-network
+   gradient but the three before its BatchNorms must be nonzero on the
+   kernel path, the attention forward and backward kernels must launch
+   once a block and step each, and the serial-block, GEMM and LayerNorm
+   kernels must not (the blocks run unfused and the patchify as a plain
+   product in training, as JAX does). One kernel-path step is split by CUDA
+   events into view network, render, patchify + pos, blocks, head + loss,
+   backward and optimizer, and one runs under ``torch.profiler``.
 4. Pix4Point serving: ``build_model`` of the ``train_pix4point.py`` config
    (vit_small: E=384, 12 blocks x 6 heads, k 16, 15 classes; bf16) at full
    width and depth with seeded random weights (BN statistics, LN affines,
@@ -244,6 +259,19 @@ RENDERER_CONFIG = {
     "view_transform_hidden": 256, "bf16": True,
 }
 RENDERER_POINTS = 2048
+
+# Renderer training: the train_config of train_renderer.py (batch 16 of
+# 2048-point clouds, so 96 images a step; constant lr 5e-4, wd 5e-2 on every
+# trainable tensor, no clip), from seeded weights.
+RENDERER_TRAIN_CONFIG = {"batch_size": 16, "min_lr": 1e-6, "learning_rate": 5e-4, "weight_decay": 5e-2,
+                         "epochs": 100, "use_lr_scheduler": False, "clip_grad_norm": 0.0}
+# Its biases whose gradient is exactly zero: each feeds a train-mode BatchNorm.
+RENDERER_PRE_BN_BIASES = tuple(f"view_transform_net.enc{i}.bias" for i in range(3))
+# Training runs the 12 blocks unfused (the attention forward and backward
+# kernels, once a block and step each: the images carry a gradient into
+# block 0) and the patchify as a plain product with autograd, as JAX does.
+RENDERER_TRAIN_COUNTERS = ("mha_qkv", "mha_qkv_bwd")
+RENDERER_TRAIN_UNUSED = ("serial_block", "gemm", "layernorm", "attention", "fps", "knn")
 
 # APF slim2 at the JAX package's longest fused sequence: npoint 1024 over
 # 2048-point clouds, one bucket-32 request (the fused block chain).
@@ -740,8 +768,12 @@ def pix4point_train_phase(torch, dev, _build) -> dict:
     del trainers["plain"], models["plain"]
     torch.cuda.empty_cache()
 
-    train_step_split(torch, trainers["kernel"], *batches[0])  # the allocator refills after the plain path
-    split = train_step_split(torch, trainers["kernel"], *batches[1])
+    vit = models["kernel"].model
+    marks = [(vit.patch_embed, "pre"), (vit.patch_embed, "post"), (vit.blocks[-1], "post")]
+    names = ("tokenizer_p3", "blocks", "head_loss", "backward", "optimizer")
+    # a warm-up split: the allocator refills after the plain path
+    train_step_split(torch, trainers["kernel"], *batches[0], marks, names)
+    split = train_step_split(torch, trainers["kernel"], *batches[1], marks, names)
     print(f"pix4point train step by stage, kernel path (CUDA events, ms): "
           f"{json.dumps({k: round(v, 3) for k, v in split.items()})}, sum {sum(split.values()):.3f}",
           flush=True)
@@ -771,6 +803,105 @@ def pix4point_train_phase(torch, dev, _build) -> dict:
     return res
 
 
+def renderer_train_phase(torch, dev, _build) -> dict:
+    """Renderer training at full width and depth (``build_model`` of the
+    ``train_renderer.py`` config, bf16, seeded random weights, none left at
+    zero): two ``Trainer``s, on the kernel path and on the plain path, built
+    as ``RendererTrainer`` builds its optimizer (``renderer_optimizer``:
+    constant lr, weight decay on every trainable tensor, no clip, only the
+    adapters trained inside the ViT), take the same batches of
+    RENDERER_TRAIN_CONFIG's 16 unit-sphere clouds of 2048 points with the
+    same draws (the head's dropouts), held as the APF phase is, with an f32
+    first step as the gradient reference; every view-network gradient but
+    the three before its BatchNorms must be nonzero and finite on the kernel
+    path (the loss reaches the camera angles through the frozen blocks, the
+    patchify and the splat). Then one kernel-path step split by CUDA events
+    and one under ``torch.profiler``. Returns the launch counts of the timed
+    steps."""
+    from pointvit_tpu_torch.models import build_model
+    from pointvit_tpu_torch.train import Trainer
+    from pointvit_tpu_torch.train.renderer_trainer import renderer_optimizer
+
+    cfg = {**RENDERER_CONFIG, "pretrained": False}
+    batch, classes = RENDERER_TRAIN_CONFIG["batch_size"], cfg["num_classes"]
+    models = {"kernel": build_model(cfg), "plain": build_model(cfg, implementation="torch")}
+    randomize(torch, models["kernel"], torch.Generator().manual_seed(SEED + 60))
+    zero = [n for n, p in models["kernel"].named_parameters() if not p.detach().any()]
+    if zero:
+        fail(f"renderer parameters left at zero by randomize: {zero[:5]}")
+    models["plain"].load_state_dict(models["kernel"].state_dict())
+    init = {n: p.detach().clone() for n, p in models["kernel"].named_parameters()}
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_renderer_train_")
+    trainers = {}
+    for path, model in models.items():
+        sched, opt = renderer_optimizer(model, RENDERER_TRAIN_CONFIG, 1)
+        trainers[path] = Trainer(model, train_dataset=None, test_dataset=None, optimizer=opt,
+                                 schedule=sched, batch_size=batch, epochs=1, label_smoothing=0.0,
+                                 output_dir=out_dir, seed=SEED, device=dev, train_loader=[],
+                                 test_loader=[], save_config_snapshot=False)
+    shutil.rmtree(out_dir)
+    trainable = sorted(n for n, p in models["kernel"].named_parameters() if p.requires_grad)
+    rng = np.random.default_rng(SEED + 60)
+    batches = []
+    for _ in range(WARMUP_STEPS + TIMED_STEPS):
+        pts, lbl = shape_clouds(rng, batch, classes, RENDERER_POINTS)
+        batches.append((torch.from_numpy(unit_sphere(pts)).to(dev), torch.from_numpy(lbl).to(dev)))
+    f32 = f32_first_step(torch, build_model({**cfg, "bf16": False}, implementation="torch"),
+                         models["kernel"], trainable, batches[0], 0.0, dev)
+    res = train_paths(torch, _build, trainers, batches, trainable)
+    res["grads"]["f32"] = f32
+    check_training(torch, "renderer train", res, models, init, trainable, RENDERER_PRE_BN_BIASES,
+                   RENDERER_TRAIN_COUNTERS, RENDERER_TRAIN_UNUSED)
+    depth = len(models["kernel"].vit.encoder_layer)
+    for name in RENDERER_TRAIN_COUNTERS:  # once a block and step, forward and backward
+        if res["counts"][name] != depth * TIMED_STEPS:
+            fail(f"renderer train: {res['counts'][name]} {name} launches in {TIMED_STEPS} steps, "
+                 f"not {depth * TIMED_STEPS}")
+    parts = {}  # where the bf16 paths' distance from f32 lies, by part of the model
+    for part in ("view_transform_net.", "vit.", "view_aggregation", "classifier."):
+        members = [n for n in trainable if n.startswith(part) and not n.endswith(RENDERER_PRE_BN_BIASES)]
+        flat = {k: torch.cat([res["grads"][k][n].float().flatten() for n in members])
+                for k in ("kernel", "plain", "f32")}
+        parts[part.rstrip(".")] = {"kernel_vs_f32": round(rel_l2(flat["kernel"], flat["f32"]), 4),
+                                   "plain_vs_f32": round(rel_l2(flat["plain"], flat["f32"]), 4),
+                                   "f32_norm": round(flat["f32"].norm().item(), 4)}
+    print(f"renderer train: first-step gradients by part, relative L2: {json.dumps(parts)}", flush=True)
+    vtn = {n: g for n, g in res["grads"]["kernel"].items() if n.startswith("view_transform_net.")}
+    dead = [n for n, g in vtn.items() if not torch.isfinite(g).all()
+            or (not n.endswith(RENDERER_PRE_BN_BIASES) and not g.abs().max().item() > 0)]
+    print(f"renderer train: {len(vtn)} view-network gradients on the kernel path, "
+          f"{len(vtn) - len(RENDERER_PRE_BN_BIASES)} of them nonzero by design: "
+          f"{'all nonzero and finite' if not dead else 'zero or not finite: ' + ', '.join(dead)}",
+          flush=True)
+    if dead or len(vtn) <= len(RENDERER_PRE_BN_BIASES):
+        fail("renderer train: the loss did not reach the view network on the kernel path")
+    images = batch * cfg["num_views"]
+    print(f"renderer train step at batch {batch} of {RENDERER_POINTS} points ({images} images of "
+          f"{cfg['img_size']}²): {step_line(res, batch)}", flush=True)
+    del trainers["plain"], models["plain"]
+    torch.cuda.empty_cache()
+
+    model = models["kernel"]
+    marks = [(model.view_transform_net, "pre"), (model.view_transform_net, "post"),
+             (model.vit.conv_proj, "pre"), (model.vit.encoder_layer[0], "pre"),
+             (model.vit.encoder_layer[-1], "post")]
+    names = ("view_net", "render", "patchify_pos", "blocks", "head_loss", "backward", "optimizer")
+    # a warm-up split: the allocator refills after the plain path
+    train_step_split(torch, trainers["kernel"], *batches[0], marks, names)
+    split = train_step_split(torch, trainers["kernel"], *batches[1], marks, names)
+    print(f"renderer train step by stage, kernel path (CUDA events, ms): "
+          f"{json.dumps({k: round(v, 3) for k, v in split.items()})}, sum {sum(split.values()):.3f}",
+          flush=True)
+    busy = device_time_by_kernel(torch, lambda: trainers["kernel"].train_step(*batches[2]))
+    print(f"renderer train step under torch.profiler, kernel path: {busy['wall_ms']:.3f} ms on the "
+          f"host's clock, {busy['device_ms']:.3f} ms of kernels ({busy['device_ms'] / busy['wall_ms']:.1%} "
+          f"busy) in {busy['launches']} launches; most device time: {json.dumps(busy['top'])}",
+          flush=True)
+    del trainers, models, model
+    torch.cuda.empty_cache()
+    return res
+
+
 def device_time_by_kernel(torch, run, top: int = 8) -> dict:
     """``run()`` once under ``torch.profiler`` (CUDA activity): its time on
     the host's clock (synchronised), the device time of its kernels summed,
@@ -793,33 +924,31 @@ def device_time_by_kernel(torch, run, top: int = 8) -> dict:
             "top": {k: round(v, 3) for k, v in best}}
 
 
-def train_step_split(torch, tr, pts, lbl) -> dict:
-    """One Pix4Point training step of ``tr`` (``Trainer.train_step``'s work,
-    step for step) split by CUDA events that hooks on the model record:
-    tokenizer + P3 stage (``patch_embed``), blocks (proj, pos MLP, cls and
-    the blocks), head and loss, backward, optimizer."""
+def train_step_split(torch, tr, pts, lbl, marks, names) -> dict:
+    """One training step of ``tr`` (``Trainer.train_step``'s work, step for
+    step) split by CUDA events: one recorded by each hook of ``marks``
+    ((module, "pre" or "post"), in the order the forward reaches them), then
+    one after the loss, the backward and the optimizer each; ``names`` names
+    the spans between consecutive events."""
     from pointvit_tpu_torch.train import cross_entropy_loss
 
-    vit = tr.model.model
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(marks) + 3)]
     record = lambda i: lambda *_: ev[i].record()  # noqa: E731
-    hooks = [vit.patch_embed.register_forward_pre_hook(record(0)),
-             vit.patch_embed.register_forward_hook(record(1)),
-             vit.blocks[-1].register_forward_hook(record(2))]
+    hooks = [(m.register_forward_pre_hook if when == "pre" else m.register_forward_hook)(record(i))
+             for i, (m, when) in enumerate(marks)]
     try:
         tr.optimizer.zero_grad()
         logits = tr.model(pts, train=True, generator=tr.generator)
         loss = cross_entropy_loss(logits, lbl, tr.label_smoothing).mean()
-        ev[3].record()
+        ev[-3].record()
         loss.backward()
-        ev[4].record()
+        ev[-2].record()
         tr.optimizer.step()
-        ev[5].record()
+        ev[-1].record()
     finally:
         for h in hooks:
             h.remove()
     torch.cuda.synchronize()
-    names = ("tokenizer_p3", "blocks", "head_loss", "backward", "optimizer")
     return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
 
 
@@ -2005,6 +2134,11 @@ def main() -> None:
     p4p_train_counts = pix4point_train_phase(torch, dev, _build)["counts"]
     print(f"pix4point training phase: {time.perf_counter() - t_train:.1f} s", flush=True)
 
+    # -- renderer (vit_b_16, 6 learned views) training, batch 16 x 2048 ------
+    t_train = time.perf_counter()
+    rend_train_counts = renderer_train_phase(torch, dev, _build)["counts"]
+    print(f"renderer training phase: {time.perf_counter() - t_train:.1f} s", flush=True)
+
     # -- the third path: Pix4Point (vit_small) serving at full width ---------
     t_p4p = time.perf_counter()
     p4p = pix4point_phase(torch, dev, _build)
@@ -2517,9 +2651,10 @@ def main() -> None:
               f"torch._int_mm); {res['ops'] / res['ms'] / 1e9:.1f} TOP/s; its row quantizer alone "
               f"{res['quantizer_ms']:.4f} ms; the bf16 GEMM kernel at this shape "
               f"{res['gemm_ms']:.4f} ms", flush=True)
-    paths = (counts, train_counts, train_long_counts, p4p_train_counts, p4p["counts"], rend["counts"],
-             quant["counts"], ab_counts, knn_wide_counts, long["counts"], longer["counts"], p4p_off_counts, apf32["counts"],
-             p4p32["counts"], small["serve_counts"], small["train_counts"], k24["counts"])
+    paths = (counts, train_counts, train_long_counts, p4p_train_counts, rend_train_counts, p4p["counts"],
+             rend["counts"], quant["counts"], ab_counts, knn_wide_counts, long["counts"], longer["counts"],
+             p4p_off_counts, apf32["counts"], p4p32["counts"], small["serve_counts"],
+             small["train_counts"], k24["counts"])
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(c.get(name, 0) for c in paths), **results[name]}

@@ -19,6 +19,7 @@ from pointvit_tpu_torch.models.renderer import (
     TORCHVISION_VIT_PRESETS,
     PointCloudRendererClassifier,
     ViewTransformationNetwork,
+    renderer_trainable_mask,
 )
 
 __all__ = [
@@ -36,4 +37,5 @@ __all__ = [
     "build_model",
     "detect_family",
     "pix4point_trainable_mask",
+    "renderer_trainable_mask",
 ]

@@ -14,7 +14,16 @@ cloud's camera angles (computed in the model dtype) and the bilinear splat
 renders the f32 points; without it the fixed camera ring and the amax
 raster do. ``implementation=None`` runs the kernel wrappers (the CUDA
 kernels for CUDA tensors); ``'torch'`` runs their plain versions on any
-device. The model serves; training (ROADMAP A9) is not ported.
+device.
+
+In training (``train=True``) the view network normalises by batch
+statistics and updates its running ones, the ViT's blocks leave their
+fused chains for ``forward_unfused`` (the attention forward and backward
+kernels on the card), the patchify is a plain product with autograd, and
+the head's dropouts draw from the generator given, as the JAX model trains
+(``models/renderer.py:150-180``). The loss reaches the learned camera
+angles through the frozen ViT, the patchify and the splat.
+:func:`renderer_trainable_mask` names what trains.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ __all__ = [
     "TORCHVISION_VIT_PRESETS",
     "ViewTransformationNetwork",
     "PointCloudRendererClassifier",
+    "renderer_trainable_mask",
 ]
 
 # The torchvision variants the reference supports.
@@ -60,7 +70,9 @@ class ViewTransformationNetwork(nn.Module):
     """Per-cloud view angles: azimuth in [−π, π], elevation in [−π/3, π/3].
     Three pointwise Linear → BatchNorm → ReLU layers (64, 128, hidden), a max
     over points, two Linear → ReLU, and the two heads (zero weights, the
-    camera ring as bias), all in ``dtype``."""
+    camera ring as bias), all in ``dtype``. The BatchNorms use batch
+    statistics in training (:func:`~pointvit_tpu_torch.nn.layers.batch_norm`:
+    flax's momentum 0.9 and biased variance), running ones otherwise."""
 
     def __init__(self, num_views: int = 6, hidden_dim: int = 256,
                  dtype: torch.dtype = torch.float32) -> None:
@@ -79,12 +91,13 @@ class ViewTransformationNetwork(nn.Module):
                 head.weight.zero_()
                 head.bias.copy_(_angle_ring(num_views, which))
 
-    def forward(self, points: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, points: torch.Tensor, *,
+                train: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
         """(B, N, 3) → (azimuth, elevation), each (B, V) in radians."""
         x = points.to(self.dtype)
         for i in range(3):
             h = linear(x, getattr(self, f"enc{i}"))
-            x = torch.relu(batch_norm(h, getattr(self, f"enc_bn{i}"), train=False))
+            x = torch.relu(batch_norm(h, getattr(self, f"enc_bn{i}"), train=train))
         x = x.amax(dim=1)
         for fc in (self.pred0, self.pred1):
             x = torch.relu(linear(x, fc))
@@ -119,13 +132,13 @@ class PointCloudRendererClassifier(nn.Module):
         self.view_aggregation = nn.Parameter(torch.full((num_views,), 1.0 / num_views))
         self.classifier = RendererHead(preset["embed_dim"], num_classes, dropout_rate)
 
-    def render_views(self, points: torch.Tensor) -> torch.Tensor:
+    def render_views(self, points: torch.Tensor, *, train: bool = False) -> torch.Tensor:
         """(B, N, 3) → (B, V, H, W) depth-shaded views."""
         B, N, _ = points.shape
         V, S = self.num_views, self.img_size
         if not self.diff_renderer:
             return render_fixed_views(points, S, V)
-        az, el = self.view_transform_net(points)
+        az, el = self.view_transform_net(points, train=train)
         flat = points[:, None].expand(B, V, N, 3).reshape(B * V, N, 3)
         views = render_diff_views(flat, az.to(points.dtype).reshape(-1),
                                   el.to(points.dtype).reshape(-1), S)
@@ -138,18 +151,24 @@ class PointCloudRendererClassifier(nn.Module):
         az, el = self.view_transform_net(points)
         return torch.rad2deg(az), torch.rad2deg(el)
 
-    def forward(self, points: torch.Tensor, *, train: bool = False) -> torch.Tensor:
-        if train:
-            raise NotImplementedError(
-                "PointCloudRendererClassifier(train=True) is not ported yet "
-                "(ROADMAP A9: renderer training)")
+    def forward(self, points: torch.Tensor, *, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         B = points.shape[0]
         V, S = self.num_views, self.img_size
-        views = self.render_views(points)
+        views = self.render_views(points, train=train)
         images = views.reshape(B * V, S, S, 1).expand(B * V, S, S, 3).to(self.dtype)
-        feats = self.vit(images).reshape(B, V, -1)
+        feats = self.vit(images, train=train, generator=generator).reshape(B, V, -1)
         # Softmax and weighted sum in the compute dtype, as the JAX model.
         v = self.view_aggregation.to(feats.dtype)
         e = torch.exp(v - v.amax())
         agg = torch.einsum("bvc,v->bc", feats, e / e.sum())
-        return self.classifier(agg)
+        return self.classifier(agg, train=train, generator=generator)
+
+
+def renderer_trainable_mask(model: nn.Module) -> set[str]:
+    """Names of the trainable renderer parameters
+    (``pointvit_tpu/models/renderer.py:188-203``): inside the ViT (``vit.*``)
+    only the adapters'; outside it everything (the view network, the view
+    aggregation, the head)."""
+    return {name for name, _ in model.named_parameters()
+            if not name.startswith("vit.") or "adapter" in name}

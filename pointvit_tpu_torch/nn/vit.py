@@ -32,11 +32,13 @@ in-place update bumps the parameter's version, a move changes its storage.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from pointvit_tpu_torch.nn.layers import (
     AdapterLayer,
     Attention,
+    Dropout,
     DropPath,
     Mlp,
     SimpleAdapter,
@@ -224,13 +226,17 @@ class SerialAdapterBlock(nn.Module):
     for the shapes of the blocks' gate (head dim 64, S ≤ 1024): on the card
     the kernel chain, with ``implementation='torch'`` or on the CPU its
     plain version. Other shapes take :meth:`forward_unfused`, as the JAX
-    block leaves its fused kernels there (``nn/vit.py:275-294``). Training
-    is not ported yet.
+    block leaves its fused kernels there (``nn/vit.py:275-294``). So does
+    ``train=True``, as the JAX block leaves its fused kernels for a
+    stochastic call (``nn/vit.py:70-71``): the attention is
+    ``fused_mha_qkv`` (the forward and backward kernels on the card), and
+    the dropouts (``dropout_rate``: after the attention and in the MLP) draw
+    from the generator given.
     """
 
     def __init__(self, dim: int, num_heads: int, adapter_bottleneck: int = 64,
                  mlp_ratio: float = 4.0, dtype: torch.dtype = torch.float32,
-                 implementation: str | None = None) -> None:
+                 implementation: str | None = None, dropout_rate: float = 0.0) -> None:
         super().__init__()
         if implementation not in (None, "torch"):
             raise ValueError(f"unknown implementation: {implementation!r}")
@@ -241,31 +247,33 @@ class SerialAdapterBlock(nn.Module):
         self.implementation = implementation
         self.ln_1 = nn.LayerNorm(dim, eps=LN_EPS)
         self.self_attention = Attention(dim, num_heads, implementation=implementation)
+        self.dropout = Dropout(dropout_rate)
         self.adapter1 = SimpleAdapter(dim, adapter_bottleneck)
         self.ln_2 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dropout_rate=dropout_rate)
         self.adapter2 = SimpleAdapter(dim, adapter_bottleneck)
         self._launch = LaunchWeights()
 
-    def forward(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         """(B, S, E) → (B, S, E) in the block's dtype."""
-        if train:
-            raise NotImplementedError(
-                "SerialAdapterBlock(train=True) is not ported yet (ROADMAP A9: renderer training)")
         x = x.to(self.dtype)
-        if not serial_block_shapes_ok(*x.shape[-2:], self.num_heads):
-            return self.forward_unfused(x)
+        if train or not serial_block_shapes_ok(*x.shape[-2:], self.num_heads):
+            return self.forward_unfused(x, train=train, generator=generator)
         weights = self._launch.get(self, lambda: serial_block_weights(self, self.dtype), self.dtype)
         if self.implementation == "torch":
             return reference_serial_block(x, weights, self.num_heads)
         return fused_serial_block(x, weights, self.num_heads)
 
-    def forward_unfused(self, x: torch.Tensor) -> torch.Tensor:
+    def forward_unfused(self, x: torch.Tensor, *, train: bool = False,
+                        generator: torch.Generator | None = None) -> torch.Tensor:
         """The block through its layer modules, one plain op at a time (with
-        the attention kernel on the card), step for step the JAX block's
-        non-fused branch."""
-        x = x + self.adapter1(self.self_attention(layer_norm(x, self.ln_1)))
-        return x + self.adapter2(self.mlp(layer_norm(x, self.ln_2)))
+        the attention kernels on the card), step for step the JAX block's
+        non-fused branch. Random draws, in order: the dropout after the
+        attention, the MLP's two dropouts."""
+        kw = dict(train=train, generator=generator)
+        x = x + self.adapter1(self.dropout(self.self_attention(layer_norm(x, self.ln_1)), **kw))
+        return x + self.adapter2(self.mlp(layer_norm(x, self.ln_2), **kw))
 
 
 class PatchifyDense(nn.Module):
@@ -276,7 +284,10 @@ class PatchifyDense(nn.Module):
     kernel (P, P, C, E) reshaped to (P·P·C, E) and transposed (the weight
     bridge does this). The product is the bf16 GEMM with the bias in its
     epilogue (``csrc/gemm.cu``) on the card, its plain version with
-    ``implementation='torch'`` or on the CPU."""
+    ``implementation='torch'`` or on the CPU. The kernel has no backward, so
+    in training (``train=True``) the product is a plain ``F.linear`` in the
+    compute dtype, as the JAX package leaves it to XLA: the renderer trains
+    through the images, so their gradient flows back to the renderer."""
 
     def __init__(self, embed_dim: int, patch_size: int, in_chans: int = 3,
                  dtype: torch.dtype = torch.float32, implementation: str | None = None) -> None:
@@ -288,14 +299,17 @@ class PatchifyDense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(embed_dim))
         nn.init.trunc_normal_(self.weight, std=self.weight.shape[1] ** -0.5)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor, *, train: bool = False) -> torch.Tensor:
         B, H, W, C = images.shape
         P = self.patch_size
         x = images.to(self.dtype).reshape(B, H // P, P, W // P, P, C).permute(0, 1, 3, 2, 4, 5)
         x = x.reshape(B * (H // P) * (W // P), P * P * C).contiguous()
         w, b = self.weight.to(self.dtype), self.bias.to(self.dtype)
-        product = reference_gemm if self.implementation == "torch" else gemm
-        out, _ = product(x, w, b, out_dtype=self.dtype)
+        if train:
+            out = F.linear(x, w, b)
+        else:
+            product = reference_gemm if self.implementation == "torch" else gemm
+            out, _ = product(x, w, b, out_dtype=self.dtype)
         return out.reshape(B, (H // P) * (W // P), -1)
 
 
@@ -305,11 +319,14 @@ class ImageViT(nn.Module):
     token (``class_token``) prepended → ``+ pos_embedding`` in the compute
     dtype → ``depth`` serial-adapter blocks (``encoder_layer.{i}``, the flax
     ``encoder_layer_{i}``) → final LayerNorm ``ln`` → the cls row. NHWC
-    input, as in the JAX package."""
+    input, as in the JAX package. ``dropout_rate`` applies after the pos
+    embedding and in every block; in training (``train=True``) it draws
+    from the generator given, in that order."""
 
     def __init__(self, depth: int = 12, embed_dim: int = 768, num_heads: int = 12,
                  patch_size: int = 16, img_size: int = 224, adapter_bottleneck: int = 64,
-                 dtype: torch.dtype = torch.float32, implementation: str | None = None) -> None:
+                 dtype: torch.dtype = torch.float32, implementation: str | None = None,
+                 dropout_rate: float = 0.0) -> None:
         super().__init__()
         self.dtype = dtype
         self.conv_proj = PatchifyDense(embed_dim, patch_size, dtype=dtype,
@@ -317,21 +334,24 @@ class ImageViT(nn.Module):
         self.class_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         seq = (img_size // patch_size) ** 2 + 1
         self.pos_embedding = nn.Parameter(0.02 * torch.randn(1, seq, embed_dim))
+        self.dropout = Dropout(dropout_rate)
         self.encoder_layer = nn.ModuleList(
             SerialAdapterBlock(embed_dim, num_heads, adapter_bottleneck, dtype=dtype,
-                               implementation=implementation)
+                               implementation=implementation, dropout_rate=dropout_rate)
             for _ in range(depth)
         )
         self.ln = nn.LayerNorm(embed_dim, eps=LN_EPS)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor, *, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         """(B, H, W, C) → (B, E) in the compute dtype."""
-        x = self.conv_proj(images)
+        kw = dict(train=train, generator=generator)
+        x = self.conv_proj(images, train=train)
         B, _, E = x.shape
         x = torch.cat([self.class_token.expand(B, 1, E).to(x.dtype), x], dim=1)
-        x = x + self.pos_embedding.to(x.dtype)
+        x = self.dropout(x + self.pos_embedding.to(x.dtype), **kw)
         for block in self.encoder_layer:
-            x = block(x)
+            x = block(x, **kw)
         # The LayerNorm is per row, so normalising the cls rows alone gives
         # the same feature.
         return layer_norm(x[:, 0], self.ln)

@@ -8,8 +8,10 @@ hat matrices and one batched product, the fixed-view raster a scatter-max.
 - :func:`splat_bilinear`: bilinear splatting is separable, so the image is
   ``(Hyᵀ · diag(f)) · Hx`` with ``hat(t) = max(0, 1 - |t|)`` evaluated
   densely. The product runs in full f32 (the JAX package asks for
-  ``Precision.HIGHEST``), never TF32. A point is dropped unless all four of
-  its neighbours lie inside the image (``render.py:129-134``).
+  ``Precision.HIGHEST``), never TF32, and so do its backward products and
+  those of the rotation (:func:`_f32_matmul`): the renderer trains through
+  the images. A point is dropped unless all four of its neighbours lie
+  inside the image (``render.py:129-134``).
 - :func:`rasterize_amax`: 5×5 NDC dilation, quantisation by truncation
   toward zero (a coordinate in (−1, 0) lands on pixel 0), out-of-bounds
   writes to a dump slot, per-pixel max by ``scatter_reduce``.
@@ -52,6 +54,29 @@ def _full_f32():
         torch.backends.cuda.matmul.allow_tf32 = flag
 
 
+class _F32Matmul(torch.autograd.Function):
+    """Batched ``a @ b`` of two f32 tensors of the same batch shape whose
+    forward and backward products both run in full f32, never TF32:
+    autograd runs a backward outside the forward's ``_full_f32``."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        with _full_f32():
+            return a @ b
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        with _full_f32():
+            ga = g @ b.transpose(-1, -2) if ctx.needs_input_grad[0] else None
+            gb = a.transpose(-1, -2) @ g if ctx.needs_input_grad[1] else None
+        return ga, gb
+
+
+_f32_matmul = _F32Matmul.apply
+
+
 def fixed_view_angles(num_views: int, device=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Default camera angles in degrees (azimuths, elevations); at most 6 views."""
     if num_views > 6:
@@ -77,8 +102,7 @@ def rotate_az_el(points: torch.Tensor, azimuth: torch.Tensor, elevation: torch.T
         torch.stack([zeros, cos_el, -sin_el], -1),
         torch.stack([zeros, sin_el, cos_el], -1),
     ], -2)
-    with _full_f32():
-        return points @ (r_el @ r_az).transpose(-1, -2)
+    return _f32_matmul(points, _f32_matmul(r_el, r_az).transpose(-1, -2))
 
 
 def project_orthographic(points: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -111,8 +135,8 @@ def splat_bilinear(points_2d: torch.Tensor, features: torch.Tensor, img_size: in
     f = torch.where(valid, features, torch.zeros_like(features))
     hx = _hat_weights(px, W)
     hy = _hat_weights(py, H)
-    with _full_f32():  # image[y, x] = Σ_n f_n · hy[n, y] · hx[n, x]
-        image = (hy * f[..., None]).transpose(1, 2).float() @ hx.float()
+    # image[y, x] = Σ_n f_n · hy[n, y] · hx[n, x]
+    image = _f32_matmul((hy * f[..., None]).transpose(1, 2).float(), hx.float())
     return image.to(points_2d.dtype)
 
 

@@ -1,9 +1,10 @@
-"""Training: the generic trainer, schedules, checkpoints, the APF and
-Pix4Point trainers."""
+"""Training: the generic trainer, schedules, checkpoints, the APF,
+Pix4Point and renderer trainers."""
 
 from pointvit_tpu_torch.train.apf_trainer import APFTrainer
 from pointvit_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from pointvit_tpu_torch.train.pix4point_trainer import Pix4PointTrainer
+from pointvit_tpu_torch.train.renderer_trainer import RendererTrainer
 from pointvit_tpu_torch.train.schedules import (
     constant_schedule,
     cosine_annealing_schedule,
@@ -24,6 +25,7 @@ __all__ = [
     "APFTrainer",
     "MaskedAdamW",
     "Pix4PointTrainer",
+    "RendererTrainer",
     "Trainer",
     "TrainingDivergedError",
     "build_optimizer",

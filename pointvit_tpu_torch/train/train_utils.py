@@ -24,8 +24,8 @@ def native_loaders(
     (normalise + custom-augment) pipeline (``train_utils.py:11-52``), or
     (None, None) when ``train_config['native_pipeline']`` is False, the
     sampling mode needs per-item work, or the native library is missing.
-    The Pix4Point trainer uses them; the APF trainer builds its own with
-    its dict transforms on top."""
+    The Pix4Point and renderer trainers use them; the APF trainer builds
+    its own with its dict transforms on top."""
     if not train_config.get("native_pipeline", True):
         return None, None
     if dataset_config.get("sampling_method", "all") not in ("all", "fps"):

@@ -179,6 +179,9 @@ class Trainer:
         train_loader / test_loader: iterables of numpy ``(points, labels)``
             batches (default the numpy ``Loader`` of
             :mod:`pointvit_tpu_torch.data.loader` over the datasets).
+        epoch_hooks: callables ``hook(trainer, epoch)`` run after each
+            epoch's checkpoints and before its log line (the renderer's
+            rendered-view PNGs plug in here).
         prefetch: batches prepared ahead on a background thread (0: none).
         nan_guard: None, 'skip' (a step with a non-finite loss or gradient
             leaves parameters, optimizer state, update count, EMA and
@@ -218,6 +221,7 @@ class Trainer:
         mesh=None,
         train_loader=None,
         test_loader=None,
+        epoch_hooks: tuple = (),
         save_config_snapshot: bool = True,
         prefetch: int = 2,
         nan_guard: str | None = None,
@@ -262,6 +266,7 @@ class Trainer:
         self.grad_accum = grad_accum
         self.ema_decay = ema_decay
         self.ema_eval = ema_eval
+        self.epoch_hooks = epoch_hooks
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
         self.train_loader = train_loader if train_loader is not None else Loader(
@@ -491,6 +496,8 @@ class Trainer:
                     self._save_checkpoint(f"{self.best_filename}{SUFFIX}", epoch, test_acc)
             if self.save_interval and (epoch + 1) % self.save_interval == 0:
                 self._save_checkpoint(f"model_epoch_{epoch + 1}{SUFFIX}", epoch, test_acc)
+            for hook in self.epoch_hooks:
+                hook(self, epoch)
             msg = (
                 f"Epoch {epoch + 1}/{self.epochs} [{time.time() - t0:.1f}s]  "
                 f"train loss {train_loss:.4f} acc {train_acc:.4f}  "

@@ -22,9 +22,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # JAX names with no port counterpart yet, by the ROADMAP item that brings them.
 NOT_PORTED = {
-    "models": {"renderer_trainable_mask": "A9", "get_vit": "A10", "get_timm_vit": "A10"},
+    "models": {"get_vit": "A10", "get_timm_vit": "A10"},
     "ops": {"fps_sampling_with_knn": "A12", "benchmark_fps_implementations": "A12"},
-    "train": {"RendererTrainer": "A9", "TrainState": "A7", "wait_for_pending_writes": "A7"},
+    "train": {"TrainState": "A7", "wait_for_pending_writes": "A7"},
 }
 
 

@@ -919,6 +919,106 @@ def test_renderer_serves_through_its_kernels(dev, monkeypatch):
     assert err <= 0.05 and (got.argmax(-1) == want.argmax(-1)).mean() >= 0.75, err
 
 
+def test_renderer_train_step_launches_the_training_kernels_and_trains_the_view_network(dev, monkeypatch):
+    """A bf16 renderer training step (vit_b_16 widths, 2 blocks, 6 learned
+    views of 224², 4 clouds of 2048 points, every weight live) on the
+    kernel path against the plain path and an f32 plain run: the attention
+    forward and backward kernels launch (the images carry a gradient into
+    block 0), the fused serial block, the patchify's GEMM kernel (it has no
+    backward) and the LayerNorm kernel do not; every gradient of the view
+    network but the three biases before its train-mode BatchNorms is nonzero
+    and finite, so the loss reaches the camera angles through the blocks,
+    the patchify and the splat. Loss and gradients are held to the
+    Pix4Point card test's bounds: the loss within BF16_REL_TOL, the view
+    network's first weight gradient within 0.5 (relative L2) of the plain
+    path's, all gradients together no further from f32 than 1.5x the plain
+    path's."""
+    from pointvit_tpu_torch.models import build_model, renderer, renderer_trainable_mask
+    from pointvit_tpu_torch.train import cross_entropy_loss, set_trainable
+
+    monkeypatch.setitem(renderer.TORCHVISION_VIT_PRESETS, "vit_b_16_depth2",
+                        dict(patch_size=16, embed_dim=768, depth=2, num_heads=12))
+    cfg = dict(num_classes=15, vit_name="vit_b_16_depth2", adapter_dim=64, num_views=6,
+               img_size=224, dropout_rate=0.1, diff_renderer=True, view_transform_hidden=256)
+    gen = torch.Generator().manual_seed(0)
+    model = build_model(cfg)
+    with torch.no_grad():  # zero-init view heads and up projections would hide the gradient
+        for name, p in model.named_parameters():
+            if p.dim() == 2:
+                p.copy_(torch.randn(p.shape, generator=gen) * p.shape[1] ** -0.5)
+            elif name.endswith("weight"):
+                p.copy_(1.0 + 0.2 * torch.randn(p.shape, generator=gen))
+            else:
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+    plain = build_model(cfg, implementation="torch")
+    ref = build_model({**cfg, "bf16": False}, implementation="torch")
+    for m in (plain, ref):
+        m.load_state_dict(model.state_dict())
+    pts = torch.randn(4, 2048, 3, generator=torch.Generator().manual_seed(1))
+    pts = (pts / pts.norm(dim=-1).amax(dim=1)[:, None, None]).to(dev)
+    lbl = torch.randint(0, 15, (4,), generator=torch.Generator().manual_seed(2)).to(dev)
+    losses, grads, vtn = [], [], None
+    for m in (model, plain, ref):
+        m.to(dev)
+        set_trainable(m, renderer_trainable_mask(m))
+        _build.reset_launch_counts()
+        logits = m(pts, train=True, generator=torch.Generator(device=dev).manual_seed(4))
+        loss = cross_entropy_loss(logits, lbl).mean()
+        loss.backward()
+        counts = _build.launch_counts()
+        losses.append(loss.item())
+        grads.append({n: p.grad.float() for n, p in m.named_parameters() if p.requires_grad})
+        launched = {k for k, v in counts.items() if v > 0}
+        if m is model:
+            assert counts["mha_qkv"] == 2 and counts["mha_qkv_bwd"] == 2, counts
+            assert launched == {"mha_qkv", "mha_qkv_bwd"}, counts
+            vtn = {n: g for n, g in grads[0].items() if n.startswith("view_transform_net.")}
+        elif m is plain:
+            assert not launched, counts
+    pre_bn = {f"view_transform_net.enc{i}.bias" for i in range(3)}
+    assert len(vtn) == 20 and pre_bn <= set(vtn)
+    for n, g in vtn.items():
+        assert torch.isfinite(g).all() and (n in pre_bn or g.abs().max() > 0), n
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()  # noqa: E731
+    flat = lambda g: torch.cat([g[n].flatten() for n in sorted(g) if n not in pre_bn])  # noqa: E731
+    first = "view_transform_net.enc0.weight"
+    errs = dict(loss=abs(losses[0] - losses[1]) / abs(losses[1]),
+                vtn_first=rel(grads[0][first], grads[1][first]),
+                kernel_f32=rel(flat(grads[0]), flat(grads[2])),
+                plain_f32=rel(flat(grads[1]), flat(grads[2])))
+    assert errs["loss"] <= BF16_REL_TOL and errs["vtn_first"] <= 0.5, errs
+    assert errs["kernel_f32"] <= 1.5 * errs["plain_f32"], errs
+
+
+def test_render_gradients_stay_f32_under_tf32(dev):
+    """The differentiable render's products run in full f32 in the backward
+    too: with TF32 switched on, its output and its gradients with respect to
+    the points and both angles equal their values with TF32 off, bit for
+    bit."""
+    from pointvit_tpu_torch.ops.render import render_diff_views
+
+    gen = torch.Generator().manual_seed(5)
+    pts = torch.randn(12, 2048, 3, generator=gen)
+    pts = (pts / pts.norm(dim=-1).amax(dim=1)[:, None, None]).to(dev)
+    az = (torch.rand(12, generator=gen) * 6.0 - 3.0).to(dev)
+    el = (torch.rand(12, generator=gen) * 2.0 - 1.0).to(dev)
+    cot = torch.randn(12, 224, 224, generator=gen).to(dev)
+
+    def run(tf32):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            leaves = [t.clone().requires_grad_() for t in (pts, az, el)]
+            out = render_diff_views(*leaves, 224)
+            out.backward(cot)
+            torch.cuda.synchronize()
+            return [out.detach()] + [t.grad for t in leaves]
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+    for got, want in zip(run(True), run(False)):
+        assert torch.equal(got, want) and want.abs().max() > 0
+
+
 def _quant_operands(gen, M, K, N, dtype, dev):
     x = torch.randn(M, K, generator=gen) * 2.0
     x[0], x[1], x[2] = 0.0, 1e-12, 1e6  # zero, tiny and huge rows

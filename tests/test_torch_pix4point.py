@@ -30,7 +30,6 @@ from pointvit_tpu.ops.pallas_knn import knn_group_pallas
 from pointvit_tpu_torch.convert import flax_to_state_dict, load_flax_variables
 from pointvit_tpu_torch.models import Pix4Point, build_model
 from pointvit_tpu_torch.nn.pointnet import P3Embed, PosEmbedMLP
-from pointvit_tpu_torch.nn.vit import SerialAdapterBlock
 from pointvit_tpu_torch.ops import knn_kernel, p3_kernel
 from pointvit_tpu_torch.ops.group import p3_group
 from pointvit_tpu_torch.serve import InferenceSession
@@ -317,8 +316,6 @@ def test_build_model_builds_the_jax_architecture(cfg):
 def test_what_is_not_ported_raises():
     with pytest.raises(NotImplementedError, match="A11"):
         Pix4Point(**CFG, moe_experts=4)
-    with pytest.raises(NotImplementedError, match="A9"):  # the renderer serves; it does not train
-        SerialAdapterBlock(128, 2)(torch.zeros(1, 17, 128), train=True)
     with pytest.raises(NotImplementedError, match="A12"):  # quantized=True serves (B10 ported)
         build_model({**APF_CFG, "remat_encoder": True})
     with pytest.raises(ValueError, match="preset"):

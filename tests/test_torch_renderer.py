@@ -210,8 +210,8 @@ def test_session_padding_and_chunking_match_one_forward(case):
 
 def test_what_is_not_ported_raises():
     model = PointCloudRendererClassifier(**CFG, diff_renderer=True)
-    with pytest.raises(NotImplementedError, match="A9"):
-        model(torch.zeros(1, N_POINTS, 3), train=True)
+    logits = model(T(_clouds(6, B=2)), train=True, generator=torch.Generator().manual_seed(0))
+    assert logits.shape == (2, CFG["num_classes"]) and torch.isfinite(logits).all()
     with pytest.raises(ValueError, match="ViT model"):
         PointCloudRendererClassifier(**{**CFG, "vit_name": "vit_h_14"})
     with pytest.raises(ValueError, match="implementation"):

@@ -139,8 +139,9 @@ def test_gate_and_what_the_block_refuses(monkeypatch):
         assert serial_block_kernel.serial_block_shapes_ok(*shape) == ok, shape
         assert not ok or pallas_block.fused_block_shapes_ok(*shape), shape
     blk = SerialAdapterBlock(E, HEADS, BOTTLENECK)
-    with pytest.raises(NotImplementedError, match="A9"):
-        blk(torch.zeros(1, 33, E), train=True)
+    x = torch.randn(1, 33, E, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():  # training takes the unfused forward; no draws at dropout 0
+        assert torch.equal(blk(x, train=True), blk.forward_unfused(x))
     with pytest.raises(ValueError, match="4·dim"):
         SerialAdapterBlock(E, HEADS, mlp_ratio=2.0)
     with pytest.raises(ValueError, match="implementation"):
@@ -180,7 +181,7 @@ def test_block_above_the_gate_runs_unfused_and_matches_the_jax_block(monkeypatch
     taken = []
     unfused = vit.SerialAdapterBlock.forward_unfused
     monkeypatch.setattr(vit.SerialAdapterBlock, "forward_unfused",
-                        lambda self, x: taken.append(x.shape[1]) or unfused(self, x))
+                        lambda self, x, **kw: taken.append(x.shape[1]) or unfused(self, x, **kw))
     with jax.default_matmul_precision("highest"):
         want = jax.jit(JBlock(HEADS, adapter_bottleneck=BOTTLENECK).apply)(variables, jnp.asarray(x))
     with torch.inference_mode():
