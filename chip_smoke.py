@@ -227,6 +227,32 @@
    (``adamw_to_optax``: the masked AdamW's optax layout), resumed by a
    fresh ``Trainer`` and trained 3 more: weights, BatchNorm statistics,
    EMA and Adam state bit-equal to the same run carried on without a stop.
+22. ``parallel``, after step 21. (a) The MoE Pix4Point trunk:
+   ``train_pix4point.py``'s model with ``moe_experts`` 4, ``moe_every`` 2,
+   top-2 (blocks 1, 3, …, 11 are MoE blocks; capacity factor 2), bf16, at
+   full width and depth with seeded weights, serves requests of 1, 32 and
+   256 clouds of 2048 points on the kernel and the plain path (the serving
+   gate; FPS, kNN, the P3 stage, the dense blocks' chain and the MoE
+   blocks' attention must launch), bucket 256 timed and profiled; then 5
+   training steps of 64 x 2048 clouds on both paths with
+   ``pix4point_optimizer``, an f32 first step (with the trainer's 0.01 x
+   aux loss) as the gradient reference, held by the training gates, every
+   router gradient nonzero on both paths and in f32; the routers' first-step
+   gradients held by the same gates on one routing (the plain path and the
+   f32 run again on the kernel path's expert picks; the share of picks that
+   differ printed); one step profiled with the expert FFN's forward and
+   backward in ``record_function`` ranges (their share of the step's kernel
+   time), and one block's expert FFN timed alone at the step's widest
+   buffer. (b) A world-1 NCCL group (a
+   ``FileStore`` in a temporary directory): slim2 trained 3 steps at 64 x
+   1024 by ``Trainer()``, ``Trainer(mesh=make_mesh())`` (DDP) and
+   ``Trainer(mesh=..., fsdp=True)`` (FSDP2), each bit for bit against the
+   one-process run or within 1e-6 relative after the last step (the case
+   printed); the FSDP trainer's checkpoint
+   served by a session with no mesh and the trained model by a session
+   with a mesh, requests 1/32/256, against a session without one;
+   ``batch_shard_map`` over the attention (row 5) and group encoder (row
+   3) wrappers against the direct calls, bit for bit.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``. Any failure exits
@@ -302,6 +328,22 @@ P4P_POINTS, P4P_TOKENS = 2048, 512
 # 2048-point clouds; warm-up then cosine, clip 10), from seeded weights.
 P4P_TRAIN_CONFIG = {"batch_size": 64, "learning_rate": 5e-4, "weight_decay": 5e-2, "t_max": 100,
                     "warmup_epochs": 10, "min_lr": 1.0e-6, "grad_norm_clip": 10}
+
+# The parallel phase. (a) The MoE trunk: train_pix4point.py's model with every
+# second block's MLP widened to 4 experts, top-2 (capacity factor 2.0, the
+# default), served and trained as Pix4Point is; the serving kernels of the
+# dense blocks and the MoE blocks' attention must launch.
+MOE_KEYS = {"moe_experts": 4, "moe_every": 2, "moe_top_k": 2}
+MOE_REQUESTS = (1, 32, 256)
+MOE_TRAIN_STEPS = WARMUP_STEPS + TIMED_STEPS - 2  # 5: two untimed, three timed
+MOE_SERVE_COUNTERS = ("fps", "knn", "p3_embed", "vit_block", "mha_qkv")
+# The routers' first-step gradients are held on one routing
+# (moe_router_gates): a pick that bf16 rounding moves to another expert sends
+# that token's router gradient to another column, so the kernel path is held
+# against the plain path and f32 run on the kernel path's picks.
+# (b) World-1 NCCL: APF slim2 trained this many steps at this batch under
+# each layout.
+PARALLEL_STEPS, PARALLEL_BATCH = 3, 64
 
 # Renderer serving: the model_config of train_renderer.py, in bf16.
 RENDERER_CONFIG = {
@@ -562,7 +604,7 @@ def train_phase(torch, dev, _build) -> dict:
         pts, lbl = shape_clouds(rng, TRAIN_BATCH, TRAIN_CLASSES)
         batches.append((torch.from_numpy(pts).to(dev), torch.from_numpy(lbl).to(dev)))
 
-    f32 = f32_first_step(torch, AdaptPointFormer(**{**cfg, "dtype": torch.float32}, implementation="torch"),
+    f32 = first_step_grads(torch, AdaptPointFormer(**{**cfg, "dtype": torch.float32}, implementation="torch"),
                          models["kernel"], trainable, batches[0], LABEL_SMOOTHING, dev)
     res = train_paths(torch, _build, trainers, batches, trainable)
     res["grads"]["f32"] = f32
@@ -573,17 +615,23 @@ def train_phase(torch, dev, _build) -> dict:
     return res
 
 
-def f32_first_step(torch, ref, model, trainable, batch, smoothing, dev) -> dict:
-    """The f32 reference of the first step: ``ref`` (the plain path in f32)
-    on ``model``'s weights takes the first batch with the trainers' draws (a
-    generator seeded as theirs are); returns its trainable gradients."""
+def first_step_grads(torch, ref, model, trainable, batch, smoothing, dev) -> dict:
+    """The first step's gradients, unclipped: ``ref`` (the f32 reference is
+    the plain path in f32) on ``model``'s weights takes the first batch with
+    the trainers' draws (a generator seeded as theirs are) and the trainers'
+    loss; returns its trainable gradients."""
     from pointvit_tpu_torch.train import cross_entropy_loss, set_trainable
 
     ref.load_state_dict(model.state_dict())
     set_trainable(ref, trainable)
     ref = ref.to(dev)
     logits = ref(batch[0], train=True, generator=torch.Generator(device=dev).manual_seed(SEED))
-    cross_entropy_loss(logits, batch[1], smoothing).mean().backward()
+    loss = cross_entropy_loss(logits, batch[1], smoothing).mean()
+    if getattr(ref, "moe_experts", 0):  # the trainer's loss: + 0.01 x the router aux loss
+        from pointvit_tpu_torch.nn.moe import collect_moe_aux_loss
+
+        loss = loss + 0.01 * collect_moe_aux_loss(ref).to(loss.device)
+    loss.backward()
     grads = {n: p.grad.detach().clone() for n, p in ref.named_parameters() if n in trainable}
     del ref, logits
     torch.cuda.empty_cache()
@@ -622,14 +670,17 @@ def train_paths(torch, _build, trainers, batches, trainable) -> dict:
     return res
 
 
-def check_training(torch, label, res, models, init, trainable, zero, counters, unused=()) -> None:
+def check_training(torch, label, res, models, init, trainable, zero, counters, unused=(),
+                   apart=()) -> None:
     """The training gates on ``train_paths``' result: finite losses, the
     first loss and each trainable first-step gradient of the kernel path
     against the plain path's and an f32 run's (``res['grads']['f32']``;
     ``zero`` names the biases whose gradient is exactly zero), the trainable
     parameters after the last step against each other and moved from
     ``init``, frozen parameters bit-unchanged, the ``counters`` launched
-    during the timed steps and the ``unused`` not."""
+    during the timed steps and the ``unused`` not. The first-step gates
+    leave out the tensors ``apart`` (the MoE routers, which
+    ``moe_router_gates`` holds on one routing)."""
     lk, lp = res["losses"]["kernel"], res["losses"]["plain"]
     print(f"{label} losses: kernel path {lk}, plain path {lp}", flush=True)
     if not all(np.isfinite(lk + lp)):
@@ -639,7 +690,8 @@ def check_training(torch, label, res, models, init, trainable, zero, counters, u
     if not d <= TRAIN_LOSS_REL_TOL:
         fail(f"the first {label} loss disagrees between the kernel and plain paths")
     gk, gp, gf = (res["grads"][k] for k in ("kernel", "plain", "f32"))
-    worst_grad, worst_zero, tensors, live = grad_gates(torch, trainable, gk, gp, zero)
+    worst_grad, worst_zero, tensors, live = grad_gates(
+        torch, [n for n in trainable if n not in apart], gk, gp, zero)
     flat = lambda g: torch.cat([g[n].float().flatten() for n in live])  # noqa: E731
     total = flat(gp).norm().item()
     worst_ratio = max((rel_l2(gk[n], gf[n]) / rel_l2(gp[n], gf[n]), n) for n in tensors)
@@ -808,7 +860,7 @@ def pix4point_train_phase(torch, dev, _build) -> dict:
     for _ in range(WARMUP_STEPS + TIMED_STEPS):
         pts, lbl = shape_clouds(rng, batch, classes, P4P_POINTS)
         batches.append((torch.from_numpy(pts).to(dev), torch.from_numpy(lbl).to(dev)))
-    f32 = f32_first_step(torch, build_model({**cfg, "bf16": False}, implementation="torch"),
+    f32 = first_step_grads(torch, build_model({**cfg, "bf16": False}, implementation="torch"),
                          models["kernel"], trainable, batches[0], 0.0, dev)
     res = train_paths(torch, _build, trainers, batches, trainable)
     res["grads"]["f32"] = f32
@@ -897,7 +949,7 @@ def renderer_train_phase(torch, dev, _build) -> dict:
     for _ in range(WARMUP_STEPS + TIMED_STEPS):
         pts, lbl = shape_clouds(rng, batch, classes, RENDERER_POINTS)
         batches.append((torch.from_numpy(unit_sphere(pts)).to(dev), torch.from_numpy(lbl).to(dev)))
-    f32 = f32_first_step(torch, build_model({**cfg, "bf16": False}, implementation="torch"),
+    f32 = first_step_grads(torch, build_model({**cfg, "bf16": False}, implementation="torch"),
                          models["kernel"], trainable, batches[0], 0.0, dev)
     res = train_paths(torch, _build, trainers, batches, trainable)
     res["grads"]["f32"] = f32
@@ -953,26 +1005,42 @@ def renderer_train_phase(torch, dev, _build) -> dict:
     return res
 
 
-def device_time_by_kernel(torch, run, top: int = 8) -> dict:
+def device_time_by_kernel(torch, run, top: int = 8, ranges=()) -> dict:
     """``run()`` once under ``torch.profiler`` (CUDA activity): its time on
     the host's clock (synchronised), the device time of its kernels summed,
-    their launch count and the ``top`` kernels by device time (ms)."""
+    their launch count and the ``top`` kernels by device time (ms). With
+    ``ranges`` (names of ``record_function`` ranges) the host's ops are
+    profiled too, and ``ranges`` maps each name to the device time of the
+    kernels launched inside it, ``linked_ms`` is that of every kernel linked
+    to a host op."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if ranges else [])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.key not in ranges]
     ms = {}
     for e in kernels:
         ms[e.key[:60]] = ms.get(e.key[:60], 0.0) + e.device_time_total / 1e3
     best = sorted(ms.items(), key=lambda kv: -kv[1])[:top]
-    return {"wall_ms": wall, "device_ms": sum(ms.values()), "launches": sum(e.count for e in kernels),
-            "top": {k: round(v, 3) for k, v in best}}
+    res = {"wall_ms": wall, "device_ms": sum(ms.values()), "launches": sum(e.count for e in kernels),
+           "top": {k: round(v, 3) for k, v in best}}
+    if ranges:
+        host = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+        launched = lambda e: sum(k.duration for k in e.kernels) / 1e3  # noqa: E731
+
+        def under(e) -> float:
+            return launched(e) + sum(under(c) for c in e.cpu_children)
+
+        res["ranges"] = {n: sum(under(e) for e in host if e.name == n) for n in ranges}
+        res["linked_ms"] = sum(launched(e) for e in host)
+    return res
 
 
 def train_step_split(torch, tr, pts, lbl, marks, names) -> dict:
@@ -2833,6 +2901,444 @@ def launch_weight_saving(torch, label, blocks, make) -> float:
     return ms
 
 
+class RoutingProbe:
+    """Wraps ``parallel/expert.py``'s ``_route``: records the (K, T) expert
+    picks of each watched MoE layer's first forward, and with ``force`` set
+    to a label, replaces a forward's picks with that label's recorded ones.
+    The router weights stay this forward's own softmax probabilities at the
+    forced experts; every pick must fit the capacity (as at cf 2, top-2 of
+    4), so none is dropped."""
+
+    def __init__(self, torch, expert_module) -> None:
+        self.torch, self.module, self.route = torch, expert_module, expert_module._route
+        self.picks, self.force, self.layer, self.hooks = {}, None, None, []
+        expert_module._route = self._route
+
+    def watch(self, label: str, model) -> None:
+        from pointvit_tpu_torch.nn.moe import MoEMlp
+
+        for name, m in model.named_modules():
+            if isinstance(m, MoEMlp):
+                self.hooks.append(m.register_forward_pre_hook(
+                    lambda *_, key=(label, name): setattr(self, "layer", key)))
+
+    def _route(self, gate_logits, capacity, top_k, normalize_gates, data_group=None):
+        if self.force is None:
+            out = self.route(gate_logits, capacity, top_k, normalize_gates, data_group)
+            self.picks.setdefault(self.layer, out[0].clone())
+            return out
+        torch = self.torch
+        expert = self.picks[(self.force, self.layer[1])]
+        if normalize_gates or data_group is not None or capacity < gate_logits.shape[0]:
+            fail("forced MoE routing needs plain gates and room for every pick")
+        # _route's arithmetic on the given picks (its positions are unused)
+        probs = torch.softmax(gate_logits.float(), dim=-1)
+        gates = torch.stack([probs.gather(1, idx[:, None])[:, 0] for idx in expert])
+        f_e = torch.nn.functional.one_hot(expert[0], probs.shape[-1]).to(probs.dtype).mean(dim=0)
+        return expert, gates, None, torch.ones_like(expert, dtype=torch.bool), f_e, probs.mean(dim=0)
+
+    def close(self) -> None:
+        self.module._route = self.route
+        for h in self.hooks:
+            h.remove()
+
+
+def moe_router_gates(torch, cfg, start, trainable, batch, dev) -> None:
+    """The MoE routers' first-step gradients (unclipped, the trainers' loss
+    on ``start``'s weights and the first batch) on one routing. The kernel
+    path, the plain path and the f32 plain path each route on their own;
+    then the plain path and the f32 one run again on the kernel path's
+    picks. Prints, for each router, the share of (token, k) picks that
+    differ between the runs and the gradients' relative L2 on each run's
+    own picks and on the kernel path's; the same for the other tensors
+    together and the global norms. Holds each router, on the kernel path's
+    picks, to the training gates: within TRAIN_GRAD_REL_TOL of the plain
+    path, and at most TRAIN_GRAD_F32_RATIO x the plain path's distance from
+    f32."""
+    from pointvit_tpu_torch.models import build_model
+    from pointvit_tpu_torch.parallel import expert as expert_module
+
+    on_k = "on the kernel path's picks"
+    probe = RoutingProbe(torch, expert_module)
+    g = {}
+    try:
+        for label, impl, bf16, force in (
+                ("kernel", None, True, None), ("plain", "torch", True, None),
+                ("f32", "torch", False, None), (f"plain {on_k}", "torch", True, "kernel"),
+                (f"f32 {on_k}", "torch", False, "kernel")):
+            ref = build_model({**cfg, "bf16": bf16}, implementation=impl)
+            probe.watch(label, ref)
+            probe.force = force
+            g[label] = first_step_grads(torch, ref, start, trainable, batch, 0.0, dev)
+            del ref
+    finally:
+        probe.close()
+    pk, pf = g[f"plain {on_k}"], g[f"f32 {on_k}"]
+    flat = lambda gs, ns: torch.cat([gs[n].float().flatten() for n in ns])  # noqa: E731
+    norms = {k: flat(v, trainable).norm().item() for k, v in g.items()}
+    print(f"moe router gates: unclipped global gradient norms {json.dumps(norms)} (the trainers "
+          f"clip at {P4P_TRAIN_CONFIG['grad_norm_clip']})", flush=True)
+    rest = [n for n in trainable if not n.endswith(".mlp.gate")]
+    print(f"moe router gates: the {len(rest)} other tensors together, relative L2: kernel vs plain "
+          f"{rel_l2(flat(g['kernel'], rest), flat(g['plain'], rest)):.3g} -> "
+          f"{rel_l2(flat(g['kernel'], rest), flat(pk, rest)):.3g} {on_k}, kernel vs f32 "
+          f"{rel_l2(flat(g['kernel'], rest), flat(g['f32'], rest)):.3g} -> "
+          f"{rel_l2(flat(g['kernel'], rest), flat(pf, rest)):.3g}", flush=True)
+    bad = []
+    for layer in sorted({name for _, name in probe.picks}):
+        differ = lambda a, b: (probe.picks[(a, layer)] != probe.picks[(b, layer)]).float(  # noqa: E731
+        ).mean().item()
+        n = f"{layer}.gate"
+        kp, kf = rel_l2(g["kernel"][n], g["plain"][n]), rel_l2(g["kernel"][n], g["f32"][n])
+        kp1, kf1, pf1 = rel_l2(g["kernel"][n], pk[n]), rel_l2(g["kernel"][n], pf[n]), rel_l2(pk[n], pf[n])
+        print(f"moe router {n}: (token, k) picks that differ: kernel vs plain "
+              f"{differ('kernel', 'plain'):.3%}, kernel vs f32 {differ('kernel', 'f32'):.3%}, plain "
+              f"vs f32 {differ('plain', 'f32'):.3%}; first-step gradient relative L2, own picks -> "
+              f"{on_k}: kernel vs plain {kp:.3g} -> {kp1:.3g} (bound {TRAIN_GRAD_REL_TOL}), kernel "
+              f"vs f32 {kf:.3g} -> {kf1:.3g}, plain vs f32 {rel_l2(g['plain'][n], g['f32'][n]):.3g} "
+              f"-> {pf1:.3g} (ratio bound {TRAIN_GRAD_F32_RATIO})", flush=True)
+        if not (kp1 <= TRAIN_GRAD_REL_TOL and kf1 <= TRAIN_GRAD_F32_RATIO * pf1):
+            bad.append(n)
+    if bad:
+        fail(f"the MoE routers' gradients of the kernel path disagree on one routing: {bad}")
+
+
+def moe_phase(torch, dev, _build, smi: str) -> list:
+    """(a) of the parallel phase: the MoE Pix4Point trunk (``P4P_CONFIG``
+    with ``MOE_KEYS``: blocks 1, 3, …, 11 are MoE blocks of 4 experts,
+    top-2, cf 2) at full width and depth, bf16, seeded weights. Serving:
+    requests of MOE_REQUESTS clouds of 2048 points on the kernel and the
+    plain path (the serving gate), bucket 256 timed. Training: 5 steps of
+    64 x 2048 clouds on both paths, built as ``Pix4PointTrainer`` builds its
+    optimizer, an f32 first step as the gradient reference (the training
+    gates), every router gradient nonzero; a step profiled for the expert
+    FFN's share, one block's expert FFN timed alone, and the routers held on
+    one routing (``moe_router_gates``). Returns the kernel paths' launch
+    counts."""
+    from pointvit_tpu_torch.models import build_model
+    from pointvit_tpu_torch.nn.moe import MoEMlp
+    from pointvit_tpu_torch.parallel.expert import _exact_gelu
+    from pointvit_tpu_torch.serve import InferenceSession
+    from pointvit_tpu_torch.train import Trainer
+    from pointvit_tpu_torch.train.pix4point_trainer import pix4point_optimizer
+
+    cfg = {**P4P_CONFIG, "pretrained": False, **MOE_KEYS}
+    gen = torch.Generator().manual_seed(SEED + 60)
+    model = build_model(cfg)
+    randomize(torch, model, gen)
+    with torch.no_grad():  # the experts and the router at their fan-in scale
+        for m in model.modules():
+            if isinstance(m, MoEMlp):
+                for name in ("gate", "w1", "w2"):
+                    p = getattr(m, name)
+                    p.copy_(torch.randn(p.shape, generator=gen) * p.shape[-2] ** -0.5)
+    kinds = [type(b).__name__ for b in model.model.blocks]
+    if kinds.count("MoEViTBlock") != 6 or kinds[1] != "MoEViTBlock":
+        fail(f"the MoE trunk's blocks are {kinds}")
+    plain = build_model(cfg, implementation="torch")
+    plain.load_state_dict(model.state_dict())
+    start = build_model(cfg, implementation="torch")  # the weights before training
+    start.load_state_dict(model.state_dict())
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    sess = InferenceSession(model, buckets=MOE_REQUESTS, device=dev)
+    psess = InferenceSession(plain, buckets=MOE_REQUESTS, device=dev)
+    rng = np.random.default_rng(SEED + 60)
+    requests = [rng.standard_normal((n, P4P_POINTS, 3)).astype(np.float32) for n in MOE_REQUESTS]
+    sess.warmup(requests[0][0])
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    served = [sess.predict_logits(r) for r in requests]
+    torch.cuda.synchronize()
+    serve_counts = _build.launch_counts()
+    print(f"moe pix4point launches during serving: {json.dumps(serve_counts)}", flush=True)
+    serving_gate(f"moe pix4point serving, requests {list(MOE_REQUESTS)}", np.concatenate(served),
+                 np.concatenate([psess.predict_logits(r) for r in requests]))
+    for name in MOE_SERVE_COUNTERS:
+        if serve_counts.get(name, 0) <= 0:
+            fail(f"the moe pix4point serving path never launched the {name} kernel")
+    big = requests[-1]
+    tp1 = cuda_ms(torch, lambda: psess.predict_logits(big), 1)
+    tk1 = cuda_ms(torch, lambda: sess.predict_logits(big), 3)
+    tk2 = cuda_ms(torch, lambda: sess.predict_logits(big), 3)
+    tp2 = cuda_ms(torch, lambda: psess.predict_logits(big), 1)
+    print(f"moe pix4point serving at bucket 256 ({smi}): kernel path {(tk1 + tk2) / 2:.3f} "
+          f"ms/request (runs {tk1:.3f}, {tk2:.3f}), plain path {(tp1 + tp2) / 2:.3f} ms/request "
+          f"(runs {tp1:.3f}, {tp2:.3f})", flush=True)
+    busy = device_time_by_kernel(torch, lambda: sess.predict_logits(big), top=12)
+    print(f"moe pix4point request at bucket 256 under torch.profiler, kernel path ({smi}): "
+          f"{busy['wall_ms']:.3f} ms on the host's clock, {busy['device_ms']:.3f} ms of kernels "
+          f"({busy['device_ms'] / busy['wall_ms']:.1%} busy) in {busy['launches']} launches; most "
+          f"device time: {json.dumps(busy['top'])}", flush=True)
+    del sess, psess
+    torch.cuda.empty_cache()
+
+    batch, classes = P4P_TRAIN_CONFIG["batch_size"], cfg["num_classes"]
+    models = {"kernel": model, "plain": plain}
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_moe_train_")
+    trainers = {}
+    for path, m in models.items():
+        sched, opt = pix4point_optimizer(m, P4P_TRAIN_CONFIG, 1)
+        trainers[path] = Trainer(m, train_dataset=None, test_dataset=None, optimizer=opt,
+                                 schedule=sched, batch_size=batch, epochs=1, label_smoothing=0.0,
+                                 output_dir=out_dir, seed=SEED, device=dev, train_loader=[],
+                                 test_loader=[], save_config_snapshot=False)
+    trainable = sorted(n for n, p in model.named_parameters() if p.requires_grad)
+    batches = []
+    for _ in range(MOE_TRAIN_STEPS):
+        pts, lbl = shape_clouds(rng, batch, classes, P4P_POINTS)
+        batches.append((torch.from_numpy(pts).to(dev), torch.from_numpy(lbl).to(dev)))
+    f32 = first_step_grads(torch, build_model({**cfg, "bf16": False}, implementation="torch"),
+                         model, trainable, batches[0], 0.0, dev)
+    res = train_paths(torch, _build, trainers, batches, trainable)
+    res["grads"]["f32"] = f32
+    gates = [n for n in trainable if n.endswith(".mlp.gate")]
+    for n in gates:
+        gk, gp, gf = (res["grads"][k][n] for k in ("kernel", "plain", "f32"))
+        print(f"moe pix4point train: router {n}: kernel vs plain {rel_l2(gk, gp):.3g}, kernel vs "
+              f"f32 {rel_l2(gk, gf):.3g}, plain vs f32 {rel_l2(gp, gf):.3g}", flush=True)
+    check_training(torch, "moe pix4point train", res, models, init, trainable, P4P_PRE_BN_BIASES,
+                   TRAINING_COUNTERS, P4P_TRAIN_UNUSED, apart=gates)
+    for path in ("kernel", "plain", "f32"):
+        for n in gates:
+            if not res["grads"][path][n].abs().max().item() > 0:
+                fail(f"moe pix4point train: the {path} path's router gradient {n} is zero")
+    print(f"moe pix4point train: {len(gates)} router gradients nonzero on both paths and in f32",
+          flush=True)
+    print(f"moe pix4point train step at batch {batch} of {P4P_POINTS} points ({smi}): "
+          f"{step_line(res, batch)}", flush=True)
+    del trainers["plain"], models["plain"], plain
+    torch.cuda.empty_cache()
+    from torch.profiler import record_function
+
+    from pointvit_tpu_torch.parallel import expert as expert_module
+
+    ffn, widths = expert_module._expert_ffn, []
+    ranges = ("moe_expert_ffn_forward", "moe_expert_ffn_backward")
+
+    class RangedFFN(torch.autograd.Function):
+        """The expert FFN, its forward and its backward each inside a
+        ``record_function`` range; the same kernels."""
+
+        @staticmethod
+        def forward(ctx, xin, *weights):
+            with torch.enable_grad(), record_function(ranges[0]):
+                ctx.ins = [t.detach().requires_grad_(t.requires_grad) for t in (xin, *weights)]
+                ctx.out = ffn(*ctx.ins, _exact_gelu)
+            return ctx.out.detach()
+
+        @staticmethod
+        def backward(ctx, grad):
+            with record_function(ranges[1]):
+                need = [t for t in ctx.ins if t.requires_grad]
+                got = iter(torch.autograd.grad(ctx.out, need, grad))
+                return tuple(next(got) if t.requires_grad else None for t in ctx.ins)
+
+    def ranged(xin, w1, b1, w2, b2, activation):
+        if activation is not _exact_gelu:
+            fail("the MoE trunk's experts do not take the exact GELU")
+        widths.append(tuple(xin.shape))
+        return RangedFFN.apply(xin, w1, b1, w2, b2)
+
+    expert_module._expert_ffn = ranged
+    try:
+        busy = device_time_by_kernel(torch, lambda: trainers["kernel"].train_step(*batches[1]),
+                                     top=12, ranges=ranges)
+    finally:
+        expert_module._expert_ffn = ffn
+    in_ffn = sum(busy["ranges"].values())
+    print(f"moe pix4point train step under torch.profiler (CPU and CUDA), kernel path ({smi}): "
+          f"{busy['wall_ms']:.3f} ms on the host's clock, {busy['device_ms']:.3f} ms of kernels "
+          f"({busy['device_ms'] / busy['wall_ms']:.1%} busy) in {busy['launches']} launches, "
+          f"{busy['linked_ms']:.3f} ms of them linked to a host op; the expert FFN's ranges "
+          f"{json.dumps({k: round(v, 3) for k, v in busy['ranges'].items()})} ms, together "
+          f"{in_ffn:.3f} ms = {in_ffn / busy['device_ms']:.1%} of the step's kernel time; most "
+          f"device time: {json.dumps(busy['top'])}", flush=True)
+    print(f"moe pix4point train: expert buffers {widths} (capacity {batch * (P4P_TOKENS + 1)})",
+          flush=True)
+    # One block's expert FFN alone, at the step's widest buffer: (E, filled
+    # slots, M) f32 (the capacity C = T = 64 x 513 tokens; the busiest expert
+    # fills fewer).
+    mlp = next(m for m in model.modules() if isinstance(m, MoEMlp))
+    slots = max(w[1] for w in widths)
+    xin = torch.randn(mlp.num_experts, slots, mlp.w1.shape[1], device=dev, requires_grad=True)
+    weights = [getattr(mlp, k).detach().to(torch.bfloat16).requires_grad_(True)
+               for k in ("w1", "b1", "w2", "b2")]
+    cot = torch.randn(mlp.num_experts, slots, mlp.w1.shape[1], device=dev)
+
+    def ffn_step():
+        y = ffn(xin, *weights, _exact_gelu)
+        torch.autograd.backward(y, cot)
+
+    ffn_ms = cuda_ms(torch, ffn_step, 3)
+    fwd_ms = cuda_ms(torch, lambda: ffn(xin, *weights, _exact_gelu), 3)
+    print(f"moe expert FFN of one block alone ({smi}): ({mlp.num_experts}, {slots}, "
+          f"{mlp.w1.shape[1]}) f32 slots, forward {fwd_ms:.3f} ms, forward + backward "
+          f"{ffn_ms:.3f} ms", flush=True)
+    del trainers, models, model, xin, weights, cot
+    torch.cuda.empty_cache()
+    moe_router_gates(torch, cfg, start, trainable, batches[0], dev)
+    shutil.rmtree(out_dir)
+    torch.cuda.empty_cache()
+    return [serve_counts, res["counts"]]
+
+
+def world1_phase(torch, dev, _build, smi: str) -> list:
+    """(b) of the parallel phase: a world-1 NCCL process group (a FileStore
+    in a temporary directory). APF slim2 at full width and depth trains
+    PARALLEL_STEPS steps of 64 x 1024 clouds with ``Trainer()``,
+    ``Trainer(mesh=make_mesh())`` (DDP) and ``Trainer(mesh=..., fsdp=True)``
+    (FSDP2) from the same seed: DDP and FSDP each bit for bit against
+    ``Trainer()``, or within 1e-6 relative after the last step (the case
+    printed). The FSDP trainer's
+    checkpoint serves in a session with no mesh; ``InferenceSession(mesh=)``
+    serves requests 1/32/256 against a session without one;
+    ``batch_shard_map`` over the attention (row 5) and group encoder (row 3)
+    wrappers against direct calls. Returns the launch counts of its runs."""
+    import os
+
+    import torch.distributed as dist
+
+    from pointvit_tpu_torch.models import AdaptPointFormer, apf_preset_config, apf_trainable_mask
+    from pointvit_tpu_torch.ops import encoder_kernel
+    from pointvit_tpu_torch.ops.attention_kernel import fused_mha_qkv
+    from pointvit_tpu_torch.ops.group import apf_group
+    from pointvit_tpu_torch.parallel import batch_shard_map, make_mesh
+    from pointvit_tpu_torch.serve import InferenceSession
+    from pointvit_tpu_torch.train import Trainer, build_optimizer, timm_cosine_schedule
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_world1_")
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh()
+        cfg = apf_preset_config("slim2", num_classes=TRAIN_CLASSES)
+        gen = torch.Generator().manual_seed(SEED + 70)
+        base = AdaptPointFormer(**cfg)
+        randomize(torch, base, gen)
+        rng = np.random.default_rng(SEED + 70)
+        batches = []
+        for _ in range(PARALLEL_STEPS):
+            pts, lbl = shape_clouds(rng, PARALLEL_BATCH, TRAIN_CLASSES)
+            batches.append((torch.from_numpy(pts).to(dev), torch.from_numpy(lbl).to(dev)))
+        counts = []
+        trained = {}
+        full = lambda v: (v.full_tensor() if hasattr(v, "full_tensor") else v).detach().clone()  # noqa: E731
+        for layout, kw in (("one process", {}), ("DDP", {"mesh": mesh}),
+                           ("FSDP", {"mesh": mesh, "fsdp": True})):
+            model = AdaptPointFormer(**cfg)
+            model.load_state_dict(base.state_dict())
+            sched = timm_cosine_schedule(LR, 100, 1, warmup_epochs=5, warmup_lr_init=1e-3)
+            opt = build_optimizer(model, sched, weight_decay=WEIGHT_DECAY,
+                                  trainable_mask=apf_trainable_mask(model), grad_clip=1.0)
+            tr = Trainer(model, train_dataset=None, test_dataset=None, optimizer=opt, schedule=sched,
+                         batch_size=PARALLEL_BATCH, epochs=1, label_smoothing=LABEL_SMOOTHING,
+                         output_dir=os.path.join(tmp, layout), seed=SEED, device=dev,
+                         train_loader=[], test_loader=[], save_config_snapshot=False, **kw)
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            losses = [tr.train_step(*batches[0])[0].item()]  # the first step allocates
+            first = {k: full(v) for k, v in model.state_dict().items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses += [tr.train_step(*b)[0].item() for b in batches[1:]]
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts.append(_build.launch_counts())
+            for name in TRAINING_COUNTERS:
+                if counts[-1].get(name, 0) <= 0:
+                    fail(f"world-1 {layout} training never launched the {name} kernel")
+            trained[layout] = (losses, first, {k: full(v) for k, v in model.state_dict().items()})
+            print(f"world-1 {layout}: {PARALLEL_STEPS} steps of {PARALLEL_BATCH} x {POINTS} clouds, "
+                  f"losses {losses}, {secs * 1e3 / (PARALLEL_STEPS - 1):.1f} ms/step on the host's "
+                  f"clock after the first ({smi})", flush=True)
+            if layout == "FSDP":
+                path = tr._save_checkpoint("fsdp.pt", 0, 0.5)
+            del tr, opt
+
+        def held(layout):
+            """Bit for bit against the one-process run, else the worst
+            relative error of a weight after the first and the last step."""
+            (l1, f1, s1), (l0, f0, s0) = trained[layout], trained["one process"]
+            same = l1 == l0 and all(torch.equal(s1[k], t) for k, t in s0.items())
+            worst = lambda a, b: max(rel_err(torch, a[k], t)[1]  # noqa: E731
+                                     for k, t in b.items() if t.is_floating_point())
+            first, last = worst(f1, f0), worst(s1, s0)
+            case = "bit-equal" if same else f"not bit-equal, worst weight within {last:.3g} relative"
+            print(f"world-1 {layout} vs one process after {PARALLEL_STEPS} steps: {case} (after "
+                  f"the first step {first:.3g}; losses {l1} vs {l0})", flush=True)
+            return same or last <= 1e-6
+
+        # At one rank the collectives are copies and every layout runs the
+        # one-process arithmetic (torch's multi-tensor AdamW, the same clip).
+        for layout in ("DDP", "FSDP"):
+            if not held(layout):
+                fail(f"world-1 {layout} training drifted from the one-process trainer")
+
+        served = AdaptPointFormer(**cfg)
+        served.load_state_dict(trained["FSDP"][2])
+        want_sess = InferenceSession(served, device=dev)
+        ck = InferenceSession.from_checkpoint(path, model=AdaptPointFormer(**cfg), device=dev)
+        msess = InferenceSession(served, device=dev, mesh=mesh)
+        reqs = [rng.standard_normal((n, POINTS, 3)).astype(np.float32) for n in (1, 32, 256)]
+        _build.reset_launch_counts()
+        for r in reqs:
+            want = want_sess.predict_logits(r)
+            for label, sess in (("the FSDP checkpoint, no mesh", ck), ("a session with a mesh", msess)):
+                got = sess.predict_logits(r)
+                if not np.array_equal(got, want):
+                    serving_gate(f"world-1 {label}, request of {len(r)}", got, want)
+                print(f"world-1 {label}, request of {len(r)}: bit-equal {np.array_equal(got, want)}",
+                      flush=True)
+        torch.cuda.synchronize()
+        counts.append(_build.launch_counts())
+        if msess.buckets != want_sess.buckets:
+            fail(f"a world-1 mesh changed the buckets: {msess.buckets}")
+
+        qkv = torch.randn(256, 197, 2304, device=dev, dtype=torch.bfloat16, generator=torch.Generator(
+            device=dev).manual_seed(SEED + 71))
+        pts = torch.from_numpy(reqs[-1][:PARALLEL_BATCH]).to(dev)
+        neigh, _ = apf_group(pts, pts, cfg["npoint"], cfg["nsample"])
+        groups = neigh.to(torch.bfloat16).reshape(-1, cfg["nsample"], neigh.shape[-1]).contiguous()
+        w_enc = encoder_kernel.fold_encoder_params(served.point_encoder)
+        _build.reset_launch_counts()
+        for label, fn, x in (("mha_qkv", lambda t: fused_mha_qkv(t, 12), qkv),
+                             ("group_encoder", lambda t: encoder_kernel.fused_group_encoder(t, w_enc),
+                              groups)):
+            got = batch_shard_map(fn, mesh)(x)
+            want = fn(x)
+            torch.cuda.synchronize()
+            d, r = rel_err(torch, got, want)
+            print(f"world-1 batch_shard_map over {label} {tuple(x.shape)}: bit-equal "
+                  f"{torch.equal(got, want)}, max|d| {d:.3g}", flush=True)
+            if not torch.equal(got, want):
+                fail(f"batch_shard_map over {label} at world 1 is not the direct call")
+        torch.cuda.synchronize()
+        counts.append(_build.launch_counts())
+        for name in ("mha_qkv", "group_encoder"):
+            if counts[-1].get(name, 0) <= 0:
+                fail(f"batch_shard_map never launched the {name} kernel")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return counts
+
+
+def parallel_phase(torch, dev, _build, smi: str) -> list:
+    t0 = time.perf_counter()
+    counts = moe_phase(torch, dev, _build, smi)
+    t1 = time.perf_counter()
+    counts += world1_phase(torch, dev, _build, smi)
+    print(f"parallel phase: {time.perf_counter() - t0:.1f} s (moe {t1 - t0:.1f} s, world-1 "
+          f"{time.perf_counter() - t1:.1f} s)", flush=True)
+    launched = {n for c in counts for n, v in c.items() if v > 0}
+    for name in ("fps", "knn", "mha_qkv", "mha_qkv_bwd", "p3_embed", "vit_block"):
+        if name not in launched:
+            fail(f"the parallel phase never launched {name}")
+    return counts
+
+
 def main() -> None:
     try:
         import torch
@@ -2927,6 +3433,10 @@ def main() -> None:
     # -- weights and state from outside: hub files, training from them, the
     # -- reference's checkpoints (APF exact), resuming a JAX-format run --------
     ingest_counts = ingest_phase(torch, dev, _build, smi)
+
+    # -- parallelism: the MoE Pix4Point trunk, then DDP/FSDP/serving/shard_map
+    # -- on a world-1 NCCL group -----------------------------------------------
+    parallel_counts = parallel_phase(torch, dev, _build, smi)
 
     # -- the fifth path: quantized (w8a8) slim2 serving on the same weights ---
     t_quant = time.perf_counter()
@@ -3468,7 +3978,7 @@ def main() -> None:
     paths = (counts, train_counts, train_long_counts, p4p_train_counts, rend_train_counts, p4p["counts"],
              rend["counts"], quant["counts"], ab_counts, knn_wide_counts, long["counts"], longer["counts"],
              p4p_off_counts, apf32["counts"], p4p32["counts"], small["serve_counts"],
-             small["train_counts"], k24["counts"], *io_counts, *ingest_counts)
+             small["train_counts"], k24["counts"], *io_counts, *ingest_counts, *parallel_counts)
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(c.get(name, 0) for c in paths), **results[name]}

@@ -66,8 +66,8 @@ def build_model(model_config: dict, family: str | None = None, *,
     if family == "pix4point":
         from pointvit_tpu_torch.models.pix4point import Pix4Point
 
-        # The other moe_* keys shape only an MoE trunk, which Pix4Point refuses.
-        overrides = {k: model_config[k] for k in ("depth", "num_heads", "moe_experts")
+        overrides = {k: model_config[k] for k in ("depth", "num_heads", "moe_experts", "moe_every",
+                                                  "moe_top_k", "moe_normalize_gates")
                      if k in model_config}
         return Pix4Point.from_pretrained_name(
             model_config["pretrained_model"],

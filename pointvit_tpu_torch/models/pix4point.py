@@ -21,8 +21,15 @@ through the forward and backward kernels on the card) and every dropout
 draws from ``g``. Random draws, in order: the FPS starts, each block's
 (none at the trunk's dropout 0, the model's default, as in JAX), the
 head's two dropouts. Freezing is ``requires_grad``:
-:func:`pix4point_trainable_mask` names the parameters that train. The MoE
-trunk (ROADMAP A11) is not ported.
+:func:`pix4point_trainable_mask` names the parameters that train.
+
+With ``moe_experts > 0`` every ``moe_every``-th block (``i % moe_every ==
+moe_every − 1``, ``pix4point.py:111-121``) is a
+:class:`~pointvit_tpu_torch.nn.moe.MoEViTBlock`: its attention through the
+attention kernels, its MLP E experts of which each token visits
+``moe_top_k``, expert-parallel over ``moe_mesh`` when one is given. Each
+training forward leaves the router load-balance losses on the MoE layers
+(:func:`~pointvit_tpu_torch.nn.moe.collect_moe_aux_loss`).
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from torch import nn
 
 from pointvit_tpu_torch.nn.heads import ClsHead
 from pointvit_tpu_torch.nn.layers import layer_norm, linear
+from pointvit_tpu_torch.nn.moe import MoEViTBlock
 from pointvit_tpu_torch.nn.pointnet import P3Embed, PosEmbedMLP
 from pointvit_tpu_torch.nn.vit import ViTBlock
 from pointvit_tpu_torch.ops.block_kernel import LN_EPS
@@ -59,9 +67,12 @@ class PointViT(nn.Module):
     def __init__(self, embed_dim: int = 384, depth: int = 12, num_heads: int = 6,
                  k_neighbors: int = 16, in_channels: int = 3, global_features: str = "max,cls",
                  dropout_rate: float = 0.0, dtype: torch.dtype = torch.float32,
-                 implementation: str | None = None) -> None:
+                 implementation: str | None = None, moe_experts: int = 0, moe_every: int = 2,
+                 moe_top_k: int = 2, moe_normalize_gates: bool = False, moe_mesh=None,
+                 moe_expert_axis: str = "expert", moe_data_axis: str | None = None) -> None:
         super().__init__()
         self.dtype = dtype
+        self.moe_experts = moe_experts
         self.global_features = global_features
         self.num_features = embed_dim * sum(
             ("cls" in t) + ("max" in t) for t in global_features.split(","))
@@ -72,11 +83,16 @@ class PointViT(nn.Module):
         self.pos_embed = PosEmbedMLP(embed_dim, dtype=dtype)
         self.cls_token = nn.Parameter(0.02 * torch.randn(1, 1, embed_dim))
         self.cls_pos = nn.Parameter(0.02 * torch.randn(1, 1, embed_dim))
-        self.blocks = nn.ModuleList(
-            ViTBlock(embed_dim, num_heads, dtype=dtype, implementation=implementation,
-                     dropout_rate=dropout_rate)
-            for _ in range(depth)
-        )
+        def block(i):
+            if moe_experts and i % moe_every == moe_every - 1:
+                return MoEViTBlock(embed_dim, num_heads, moe_experts, top_k=moe_top_k,
+                                   normalize_gates=moe_normalize_gates, dropout_rate=dropout_rate,
+                                   dtype=dtype, mesh=moe_mesh, expert_axis=moe_expert_axis,
+                                   data_axis=moe_data_axis, implementation=implementation)
+            return ViTBlock(embed_dim, num_heads, dtype=dtype, implementation=implementation,
+                            dropout_rate=dropout_rate)
+
+        self.blocks = nn.ModuleList(block(i) for i in range(depth))
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
 
     def forward(self, points: torch.Tensor, features: torch.Tensor | None = None, *,
@@ -104,17 +120,21 @@ class PointViT(nn.Module):
 
 class Pix4Point(nn.Module):
     """Pix4Point classifier: (B, N, 3) points → (B, classes) logits in the
-    model's dtype."""
+    model's dtype. The ``moe_*`` options shape the MoE trunk (see
+    :class:`PointViT`)."""
 
     def __init__(self, num_classes: int = 15, embed_dim: int = 384, depth: int = 12,
                  num_heads: int = 6, k_neighbors: int = 16, dtype: torch.dtype = torch.float32,
-                 implementation: str | None = None, moe_experts: int = 0) -> None:
+                 implementation: str | None = None, moe_experts: int = 0, moe_every: int = 2,
+                 moe_top_k: int = 2, moe_normalize_gates: bool = False, moe_mesh=None,
+                 moe_expert_axis: str = "expert", moe_data_axis: str | None = None) -> None:
         super().__init__()
-        if moe_experts:
-            raise NotImplementedError("the MoE trunk (moe_experts > 0) is not ported yet "
-                                      "(ROADMAP A11)")
+        self.moe_experts = moe_experts
         self.model = PointViT(embed_dim, depth, num_heads, k_neighbors, dtype=dtype,
-                              implementation=implementation)
+                              implementation=implementation, moe_experts=moe_experts,
+                              moe_every=moe_every, moe_top_k=moe_top_k,
+                              moe_normalize_gates=moe_normalize_gates, moe_mesh=moe_mesh,
+                              moe_expert_axis=moe_expert_axis, moe_data_axis=moe_data_axis)
         self.cls_head = ClsHead(self.model.num_features, num_classes)
 
     @classmethod

@@ -16,6 +16,13 @@ Every LayerNorm uses eps 1e-6, the flax default.
 Randomness is explicit, as with flax's ``deterministic`` flag and PRNG
 streams: a forward is stochastic only with ``train=True``, and it draws from
 the ``torch.Generator`` it is given (the default generator when None).
+
+Inside a data-parallel step (:func:`~pointvit_tpu_torch.parallel.comm.global_batch`)
+a rank draws its masks as this rank's rows of the global batch's draw, and
+train-mode BatchNorm takes the global batch's statistics over the data
+group, as the JAX package's SPMD step computes them. A layer whose weights
+a tensor-parallel plan sharded (DTensors) runs its rank's slice
+(:func:`~pointvit_tpu_torch.parallel.mesh.tp_linear`).
 """
 
 from __future__ import annotations
@@ -27,6 +34,8 @@ from torch import nn
 from pointvit_tpu_torch.nn.quant import QuantLinear, dense
 from pointvit_tpu_torch.ops.attention_kernel import fused_mha_qkv
 from pointvit_tpu_torch.ops.block_kernel import LN_EPS
+from pointvit_tpu_torch.parallel.comm import all_reduce_sum, current_batch, draw_rows
+from pointvit_tpu_torch.parallel.mesh import DTENSOR, tp_attention, tp_linear
 
 __all__ = [
     "Attention",
@@ -35,6 +44,7 @@ __all__ = [
     "SimpleAdapter",
     "Dropout",
     "DropPath",
+    "Identity",
     "batch_norm",
     "layer_norm",
     "linear",
@@ -48,6 +58,8 @@ def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
     gradients come back in f32); a ``QuantLinear`` runs its int8 product."""
     if isinstance(lin, QuantLinear):
         return lin(x)
+    if DTENSOR is not None and isinstance(lin.weight, DTENSOR):
+        return tp_linear(x, lin)
     b = lin.bias.to(x.dtype) if lin.bias is not None else None
     return F.linear(x, lin.weight.to(x.dtype), b)
 
@@ -66,7 +78,10 @@ def batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d, *, train: bool) -> torch.Ten
     batch variance (E[x²] − E[x]², clipped at 0, as flax computes it) and
     updates ``r ← 0.9·r + 0.1·stat`` with that same biased variance.
     ``F.batch_norm(training=True)`` would update ``running_var`` with the
-    unbiased variance, so it is not used in training.
+    unbiased variance, so it is not used in training. Inside a
+    ``global_batch`` the two means are averaged over the data group (every
+    rank holds as many rows), differentiably, so every rank normalises by
+    the global batch's statistics.
     """
     xf = x.float()
     if not train:  # rows of the last axis: F.batch_norm takes channels on axis 1
@@ -75,7 +90,12 @@ def batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d, *, train: bool) -> torch.Ten
         return y.reshape(x.shape).to(x.dtype)
     dims = tuple(range(x.dim() - 1))
     mean = xf.mean(dim=dims)
-    var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+    mean_sq = (xf * xf).mean(dim=dims)
+    batch = current_batch()
+    if batch is not None:
+        both = all_reduce_sum(torch.stack([mean, mean_sq]), batch.group) / batch.size
+        mean, mean_sq = both[0], both[1]
+    var = torch.clamp(mean_sq - mean * mean, min=0.0)
     with torch.no_grad():
         bn.running_mean.mul_(BN_MOMENTUM).add_(mean.detach(), alpha=1.0 - BN_MOMENTUM)
         bn.running_var.mul_(BN_MOMENTUM).add_(var.detach(), alpha=1.0 - BN_MOMENTUM)
@@ -85,9 +105,10 @@ def batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d, *, train: bool) -> torch.Ten
 
 def _uniform(shape, generator: torch.Generator | None, device: torch.device) -> torch.Tensor:
     """U[0, 1) draws made on the generator's own device, then moved to
-    ``device`` (a CUDA generator draws on the card)."""
+    ``device`` (a CUDA generator draws on the card); this rank's rows of the
+    global batch's draw inside a ``global_batch``."""
     where = generator.device if generator is not None else device
-    return torch.rand(shape, generator=generator, device=where).to(device)
+    return draw_rows(lambda s: torch.rand(s, generator=generator, device=where), shape).to(device)
 
 
 class Dropout(nn.Module):
@@ -105,6 +126,13 @@ class Dropout(nn.Module):
         keep = 1.0 - self.rate
         mask = _uniform(x.shape, generator, x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+class Identity(nn.Module):
+    """The identity, with the other layers' keyword arguments."""
+
+    def forward(self, x: torch.Tensor, **_) -> torch.Tensor:
+        return x
 
 
 class DropPath(nn.Module):
@@ -143,6 +171,8 @@ class Attention(nn.Module):
         self.proj = dense(quantized, dim, dim, True, implementation)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if DTENSOR is not None and isinstance(self.qkv.weight, DTENSOR):
+            return tp_attention(x, self, self.implementation)
         att = fused_mha_qkv(linear(x, self.qkv), self.num_heads, self.implementation)
         return linear(att, self.proj)
 

@@ -23,10 +23,18 @@ head dim 64, S ≤ 1024), as the JAX block leaves its fused kernel there
 ``SerialAdapterBlock`` leave their fused chains outside that gate too, for
 an unfused forward through their layer modules.
 
+Tensor parallelism (DTensor weights from
+:func:`~pointvit_tpu_torch.parallel.transformer_tp_shardings`) runs the
+plain path: a block with such weights takes :meth:`forward_unfused` with
+``implementation='torch'`` and raises on the kernel path, whose kernels take
+whole weights (as GSPMD cannot partition a Pallas call).
+
 Each block keeps the weights its kernel chain launches with (cast to the
 compute dtype, for APF also folded and transposed) and makes them anew only
 when a parameter changes, as ``QuantLinear`` keeps its int8 weight: an
 in-place update bumps the parameter's version, a move changes its storage.
+A block that is an FSDP unit keeps nothing: FSDP gathers its weights into
+the same storage before each forward.
 """
 
 from __future__ import annotations
@@ -66,6 +74,12 @@ from pointvit_tpu_torch.ops.vit_block_kernel import (
     vit_block_shapes_ok,
     vit_block_weights,
 )
+from pointvit_tpu_torch.parallel.mesh import DTENSOR
+
+try:
+    from torch.distributed.fsdp import FSDPModule
+except ImportError:  # a build without distributed support
+    FSDPModule = None
 
 __all__ = ["APFBlock", "ViTBlock", "SerialAdapterBlock", "PatchifyDense", "ImageViT"]
 
@@ -76,7 +90,9 @@ class LaunchWeights:
     key (dtype, device) differs. Parameters made under ``inference_mode``
     have no version to key on: then the weights are made on every call. So
     are they while ``torch.export`` traces, whose fake parameters have no
-    storage: the program computes them, and the cache is left as it was."""
+    storage (the program computes them, and the cache is left as it was),
+    and for a module that is an FSDP unit, whose gathered weights come back
+    into the same storage with new values after a step."""
 
     def __init__(self) -> None:
         self._key = None
@@ -84,12 +100,29 @@ class LaunchWeights:
 
     def get(self, module: nn.Module, make, *key):
         params = tuple(module.parameters())
-        if exporting() or any(p.is_inference() for p in params):
+        if exporting() or any(p.is_inference() for p in params) \
+                or (FSDPModule is not None and isinstance(module, FSDPModule)):
             return make()
         key = (key, tuple((p._version, p.data_ptr()) for p in params))
         if key != self._key:
             self._key, self._value = key, make()
         return self._value
+
+
+def _unfused_for_tp(block: nn.Module, attn: nn.Module, mlp: nn.Module) -> bool:
+    """True when a tensor-parallel plan sharded the block's attention or MLP
+    (the pairs :func:`~pointvit_tpu_torch.parallel.transformer_tp_shardings`
+    shards, whose column layer then holds a DTensor): the plain path then
+    runs the block unfused; the kernel path raises."""
+    if DTENSOR is None or not (isinstance(attn.qkv.weight, DTENSOR)
+                               or isinstance(mlp.fc1.weight, DTENSOR)):
+        return False
+    if block.implementation is None:
+        raise ValueError(
+            f"{type(block).__name__}: tensor-parallel (DTensor) weights cannot enter the "
+            "hand-written block kernels, which take whole weights; build the model with "
+            "implementation='torch' for tensor parallelism")
+    return True
 
 
 class APFBlock(nn.Module):
@@ -124,7 +157,8 @@ class APFBlock(nn.Module):
                 generator: torch.Generator | None = None) -> torch.Tensor:
         """(B, S, E) → (B, S, E) in the block's dtype."""
         x = x.to(self.dtype)
-        if train or self.quantized or not apf_block_shapes_ok(*x.shape[-2:], self.num_heads):
+        if (train or self.quantized or not apf_block_shapes_ok(*x.shape[-2:], self.num_heads)
+                or _unfused_for_tp(self, self.attention, self.mlp)):
             return self.forward_unfused(x, train=train, generator=generator)
         weights = apf_block_weights(self)
         if self.implementation == "torch":
@@ -192,7 +226,8 @@ class ViTBlock(nn.Module):
         x = x.to(self.dtype)
         if pos is not None:
             pos = pos.to(self.dtype)
-        if train or not vit_block_shapes_ok(*x.shape[-2:], self.num_heads):
+        if train or not vit_block_shapes_ok(*x.shape[-2:], self.num_heads) \
+                or _unfused_for_tp(self, self.attn, self.mlp):
             return self.forward_unfused(x, pos=pos, train=train, generator=generator)
         weights = self._launch.get(self, lambda: vit_block_weights(self, self.dtype), self.dtype)
         if self.implementation == "torch":
@@ -261,7 +296,8 @@ class SerialAdapterBlock(nn.Module):
                 generator: torch.Generator | None = None) -> torch.Tensor:
         """(B, S, E) → (B, S, E) in the block's dtype."""
         x = x.to(self.dtype)
-        if train or not serial_block_shapes_ok(*x.shape[-2:], self.num_heads):
+        if (train or not serial_block_shapes_ok(*x.shape[-2:], self.num_heads)
+                or _unfused_for_tp(self, self.self_attention, self.mlp)):
             return self.forward_unfused(x, train=train, generator=generator)
         weights = self._launch.get(self, lambda: serial_block_weights(self, self.dtype), self.dtype)
         if self.implementation == "torch":

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from pointvit_tpu_torch.ops import fps_kernel
+from pointvit_tpu_torch.parallel.comm import draw_rows
 
 __all__ = ["farthest_point_sample", "fps_gather", "random_starts"]
 
@@ -51,9 +52,12 @@ def farthest_point_sample(
 def random_starts(points: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     """(B,) FPS start indices of the (B, N, C) clouds, uniform over the N
     points and drawn from ``generator`` on its own device: the port's
-    counterpart of the JAX package's key → start (``ops/fps.py:104-107``)."""
+    counterpart of the JAX package's key → start (``ops/fps.py:104-107``).
+    Inside a data-parallel step, this rank's rows of the global batch's
+    draw (:func:`~pointvit_tpu_torch.parallel.comm.draw_rows`)."""
     B, N = points.shape[:2]
-    return torch.randint(0, N, (B,), generator=generator, device=generator.device)
+    return draw_rows(lambda s: torch.randint(0, N, s, generator=generator,
+                                             device=generator.device), (B,))
 
 
 def fps_gather(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -22,8 +22,14 @@ shapes, and the memory they take, to a known set.
 A session runs one forward at a time (a lock): the micro-batcher's thread
 and a caller of :meth:`~InferenceSession.predict_logits` (the HTTP batch
 endpoint) may share it, and the blocks' kept launch weights and a quantized
-layer's int8 weights are caches that one forward fills. Mesh data
-parallelism is not ported (ROADMAP A11).
+layer's int8 weights are caches that one forward fills.
+
+With ``mesh`` (a ``DeviceMesh`` with a ``data`` dimension,
+:func:`~pointvit_tpu_torch.parallel.make_mesh`) a session is data-parallel
+as the JAX one is (``serve.py:85-97``): the buckets round up to multiples of
+the rank count, every rank runs its contiguous rows of each padded batch
+with the model's kernels, and the logits are gathered. Every rank calls the
+session with the same clouds, as the processes of a ``torchrun`` program do.
 """
 
 from __future__ import annotations
@@ -38,12 +44,6 @@ import torch
 __all__ = ["InferenceSession", "MicroBatcher"]
 
 _DEFAULT_BUCKETS = (8, 32, 128, 256)
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("mesh data parallelism in serving is not ported yet (ROADMAP A11); "
-                                  "a session serves one device")
 
 
 def _restore(model: torch.nn.Module, raw: dict, use_ema: bool) -> None:
@@ -78,19 +78,31 @@ class InferenceSession:
         buckets: batch sizes to serve; requests pad to the smallest that fits.
         device: where the model and the requests run: the card unless the
             caller asks for another device (the CPU tests pass ``"cpu"``).
-        mesh: not ported (ROADMAP A11); anything but None raises.
+        mesh: a ``DeviceMesh`` with a ``data`` dimension for data-parallel
+            serving (every rank calls with the same clouds), or None.
     """
 
     def __init__(self, model: torch.nn.Module, buckets=_DEFAULT_BUCKETS, device="cuda", *,
                  mesh=None) -> None:
-        _no_mesh(mesh)
         self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None and mesh is not None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.model = model.eval().to(self.device)
-        self._configure(self.model, buckets, getattr(model, "in_channels", 3), None)
+        self._configure(self.model, buckets, getattr(model, "in_channels", 3), None, mesh)
 
-    def _configure(self, run, buckets, channels: int, points: int | None) -> None:
-        self.buckets = tuple(sorted({int(b) for b in buckets}))
-        if not self.buckets or self.buckets[0] < 1:
+    def _configure(self, run, buckets, channels: int, points: int | None, mesh=None) -> None:
+        self.mesh = mesh
+        self._group = None
+        n = 1
+        if mesh is not None:
+            from pointvit_tpu_torch.parallel.comm import group_size
+
+            self._group = mesh.get_group("data")
+            n = group_size(self._group)
+        if any(int(b) < 1 for b in buckets):
+            raise ValueError(f"buckets must be positive, got {buckets}")
+        self.buckets = tuple(sorted({-(-int(b) // n) * n for b in buckets}))
+        if not self.buckets:
             raise ValueError(f"buckets must be positive, got {buckets}")
         self.in_channels = channels
         self.points = points  # fixed by an exported program; None: any
@@ -121,9 +133,9 @@ class InferenceSession:
         for the plain versions) unless ``model`` or ``model_config`` is
         given; without any of the three, :class:`FileNotFoundError`. A
         checkpoint of an EMA trainer serves its averaged weights and
-        statistics unless ``use_ema=False``.
+        statistics unless ``use_ema=False``. ``mesh`` serves it
+        data-parallel.
         """
-        _no_mesh(mesh)
         from pointvit_tpu_torch.train.checkpoint import load_checkpoint
 
         raw = load_checkpoint(path, map_location="cpu")
@@ -137,7 +149,7 @@ class InferenceSession:
 
             model = build_model(model_config, family=family, implementation=implementation)
         _restore(model, raw, use_ema)
-        return cls(model, buckets, device)
+        return cls(model, buckets, device, mesh=mesh)
 
     @classmethod
     def from_exported(cls, path: str, *, buckets=_DEFAULT_BUCKETS, mesh=None) -> "InferenceSession":
@@ -145,8 +157,7 @@ class InferenceSession:
         pointvit_tpu_torch.export``) behind the same bucket ladder and
         micro-batching: no model class and no checkpoint, the device is the
         one it was exported on. A program exported with a fixed batch takes
-        only buckets of that size."""
-        _no_mesh(mesh)
+        only buckets of that size. ``mesh`` serves it data-parallel."""
         from pointvit_tpu_torch.export import load_exported
 
         fn = load_exported(path)
@@ -156,7 +167,7 @@ class InferenceSession:
         self = cls.__new__(cls)
         self.model = None
         self.device = fn.device
-        self._configure(fn, buckets, fn.meta["channels"], fn.meta["points"])
+        self._configure(fn, buckets, fn.meta["channels"], fn.meta["points"], mesh)
         return self
 
     # -- inference ----------------------------------------------------------
@@ -173,6 +184,15 @@ class InferenceSession:
 
     @torch.inference_mode()
     def _forward(self, batch: np.ndarray) -> np.ndarray:
+        if self._group is not None:  # this rank's rows; the ranks' logits gathered
+            from pointvit_tpu_torch.parallel.comm import all_gather, group_rank, group_size
+
+            per = len(batch) // group_size(self._group)
+            r = group_rank(self._group)
+            x = torch.from_numpy(np.ascontiguousarray(batch[r * per:(r + 1) * per],
+                                                      dtype=np.float32)).to(self.device)
+            with self._lock:
+                return all_gather(self._run(x).float(), self._group).cpu().numpy()
         x = torch.from_numpy(np.ascontiguousarray(batch, dtype=np.float32)).to(self.device)
         with self._lock:
             return self._run(x).float().cpu().numpy()

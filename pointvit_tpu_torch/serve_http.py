@@ -36,8 +36,9 @@ once.
 
 ``python -m pointvit_tpu_torch.serve_http --checkpoint PATH | --exported
 PATH`` serves a checkpoint or an exported artifact (the counterpart of
-``scripts/serve_http.py``; mesh data parallelism is not ported, ROADMAP
-A11).
+``scripts/serve_http.py``) without a mesh: one HTTP process cannot hand
+its requests to other ranks. A session given a mesh by a program reports
+the mesh's shape under ``"mesh"``.
 """
 
 from __future__ import annotations
@@ -180,7 +181,7 @@ class _Handler(BaseHTTPRequestHandler):
             self._send_json(200, {
                 "status": "ok",
                 "buckets": list(s.buckets),
-                "mesh": None,
+                "mesh": list(s.mesh.mesh.shape) if s.mesh is not None else None,
                 "model": type(s.model).__name__ if s.model is not None else "exported",
                 "device": str(s.device),
             })

@@ -10,12 +10,25 @@ to ``optax.set_to_zero``), and randomness comes from one ``torch.Generator``
 on the training device, seeded from ``seed``, which every train forward
 draws its FPS starts, dropout and drop-path masks from.
 
-Data parallelism over a mesh and FSDP are not ported yet (ROADMAP A11): one
-trainer drives one device.
+With ``mesh`` (a ``DeviceMesh`` from :mod:`pointvit_tpu_torch.parallel`, one
+process per rank as ``torchrun`` starts them) the step is the JAX trainer's
+SPMD step over the mesh: each rank takes its contiguous rows of the global
+batch and the update equals the one-process update on that batch. The model
+is wrapped in DDP over the ``data`` dimension (``fsdp=False``), sharded by
+FSDP2 with the JAX plan (``fsdp=True``, :func:`~pointvit_tpu_torch.parallel.shard_fsdp`),
+or, with a ``model`` dimension above 1, laid out by the tensor-parallel plan
+with its gradients averaged over the data group. Inside the step
+(:func:`~pointvit_tpu_torch.parallel.comm.global_batch`) every rank draws the
+global batch's FPS starts and dropout masks from the shared generator and
+keeps its rows, train-mode BatchNorm takes the global batch's statistics,
+and an MoE trunk routes as the global batch. The non-finite guard and the
+clip's global norm are reduced over the ranks; checkpoints are gathered to
+whole tensors and written by rank 0, and a resume shards them again.
 """
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import json
 import math
@@ -29,6 +42,7 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 from pointvit_tpu_torch.data.loader import Loader, Prefetcher, to_device, transfer
+from pointvit_tpu_torch.parallel.comm import global_batch
 from pointvit_tpu_torch.train.checkpoint import SUFFIX, load_checkpoint, save_checkpoint
 from pointvit_tpu_torch.train.train_utils import save_configs
 
@@ -48,6 +62,17 @@ class TrainingDivergedError(RuntimeError):
     loss is non-finite; the last checkpoint is the recovery point."""
 
 
+def _map_tensors(tree, fn):
+    """``tree`` with ``fn`` applied to every tensor in its dicts and lists."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_tensors(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tensors(v, fn) for v in tree)
+    return tree
+
+
 def cross_entropy_loss(
     logits: torch.Tensor, labels: torch.Tensor, label_smoothing: float = 0.0
 ) -> torch.Tensor:
@@ -61,15 +86,42 @@ def cross_entropy_loss(
     return -(target * F.log_softmax(logits, dim=-1)).sum(dim=-1)
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (its own storage), or the tensor itself."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def _sharded_group(t: torch.Tensor):
+    """The group over which a DTensor is sharded (None when replicated or
+    a plain tensor)."""
+    placements = getattr(t, "placements", None)
+    if placements is None or not any(p.is_shard() for p in placements):
+        return None
+    return t.device_mesh.get_group()
+
+
 def clip_by_global_norm(params, max_norm: float) -> torch.Tensor:
     """Scale the gradients of ``params`` by ``max_norm / norm`` where their
     global L2 norm reaches ``max_norm`` (``optax.clip_by_global_norm``);
-    returns the norm before clipping."""
+    returns the norm before clipping. Sharded gradients (FSDP, tensor
+    parallelism) add their shards' squares over their group, so every rank
+    clips by the same norm, and a rank that holds whole tensors sums the same
+    squares in the same order as a process without shards."""
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    squares = torch.stack([torch.linalg.vector_norm(_local(g).float()) ** 2 for g in grads])
+    groups = {}
+    for i, g in enumerate(grads):
+        group = _sharded_group(g)
+        if group is not None:
+            groups.setdefault(group, []).append(i)
+    for group, rows in groups.items():  # a shard's square summed over its group
+        part = squares[rows]
+        torch.distributed.all_reduce(part, group=group)
+        squares[rows] = part
+    norm = torch.sqrt(squares.sum())
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     for g in grads:
-        g.mul_(scale.to(g.dtype))
+        _local(g).mul_(scale.to(g.dtype))
     return norm
 
 
@@ -95,20 +147,43 @@ class MaskedAdamW:
         eps: float = 1e-8,
         masked: bool = False,
     ) -> None:
-        named = [(n, p) for n, p in named_parameters if p.requires_grad]
-        self.params = [p for _, p in named]
-        groups = [
-            {"params": [p for n, p in named if n not in no_decay], "weight_decay": weight_decay},
-            {"params": [p for n, p in named if n in no_decay], "weight_decay": 0.0},
-        ]
-        self.optimizer = torch.optim.AdamW(
-            [g for g in groups if g["params"]], lr=schedule(0), betas=betas, eps=eps
-        )
+        self._options = dict(weight_decay=weight_decay, no_decay=no_decay, betas=betas, eps=eps)
         self.schedule = schedule
+        self._build(named_parameters)
         self.grad_clip = grad_clip
         self.count = 0
         self.masked = masked
         self.decay_masked = bool(no_decay)
+
+    def _build(self, named_parameters) -> None:
+        o = self._options
+        named = [(n, p) for n, p in named_parameters if p.requires_grad]
+        self.params = [p for _, p in named]
+        layout = [(o["weight_decay"], [p for n, p in named if n not in o["no_decay"]]),
+                  (0.0, [p for n, p in named if n in o["no_decay"]])]
+        # A state dict keeps one group of the decayed parameters and one of
+        # the rest (``_layout``). torch's multi-tensor AdamW takes DTensors
+        # (FSDP, tensor parallelism) and plain tensors in separate lists, so
+        # the optimizer splits each of those groups by kind, with the same
+        # options; ``_of`` names the group each part belongs to.
+        self._layout = [ps for _, ps in layout if ps]
+        groups, self._of = [], []
+        for j, (wd, ps) in enumerate((wd, ps) for wd, ps in layout if ps):
+            for sharded in (False, True):
+                part = [p for p in ps if hasattr(p, "to_local") == sharded]
+                if part:
+                    groups.append({"params": part, "weight_decay": wd})
+                    self._of.append(j)
+        self.optimizer = torch.optim.AdamW(groups, lr=self.schedule(0), betas=o["betas"],
+                                           eps=o["eps"])
+
+    def rebind(self, named_parameters) -> None:
+        """Hold the parameters a wrap made in place of the ones given at
+        construction (FSDP and tensor parallelism replace them with
+        DTensors), with the same options; call it before the first step."""
+        if self.count or self.optimizer.state:
+            raise RuntimeError("rebind an optimizer before its first step")
+        self._build(named_parameters)
 
     def zero_grad(self) -> None:
         self.optimizer.zero_grad(set_to_none=True)
@@ -123,10 +198,34 @@ class MaskedAdamW:
         self.count += 1
 
     def state_dict(self) -> dict:
-        return {"adamw": self.optimizer.state_dict(), "count": self.count}
+        """The AdamW state in the layout of ``_layout`` (whatever the split by
+        kind), so a checkpoint loads under any distribution, and the count."""
+        sd = self.optimizer.state_dict()
+        flat = [p for g in self.optimizer.param_groups for p in g["params"]]
+        where = {id(p): i for i, p in enumerate(p for ps in self._layout for p in ps)}
+        groups, start = [], 0
+        for j, ps in enumerate(self._layout):
+            groups.append({**sd["param_groups"][self._of.index(j)],
+                           "params": list(range(start, start + len(ps)))})
+            start += len(ps)
+        state = {where[id(flat[i])]: v for i, v in sd["state"].items()}
+        return {"adamw": {"state": state, "param_groups": groups}, "count": self.count}
 
     def load_state_dict(self, state: dict) -> None:
-        self.optimizer.load_state_dict(state["adamw"])
+        saved = state["adamw"]
+        if len(saved["param_groups"]) != len(self._layout):
+            raise ValueError(f"the state has {len(saved['param_groups'])} parameter groups, "
+                             f"this optimizer {len(self._layout)}")
+        where = {id(p): i for i, p in enumerate(p for ps in self._layout for p in ps)}
+        flat = [p for g in self.optimizer.param_groups for p in g["params"]]
+        groups, start = [], 0
+        for g, j in zip(self.optimizer.param_groups, self._of):
+            groups.append({**saved["param_groups"][j],
+                           "params": list(range(start, start + len(g["params"])))})
+            start += len(g["params"])
+        moments = {i: saved["state"][where[id(p)]] for i, p in enumerate(flat)
+                   if where[id(p)] in saved["state"]}
+        self.optimizer.load_state_dict({"state": moments, "param_groups": groups})
         self.count = int(state["count"])
 
 
@@ -201,7 +300,16 @@ class Trainer:
             parameters and the BatchNorm statistics (frozen parameters are
             their own average); with ``ema_eval`` the test epochs and
             :meth:`predict` use them.
-        mesh / fsdp: not ported (ROADMAP A11); raise.
+        mesh: a ``DeviceMesh`` (:func:`~pointvit_tpu_torch.parallel.make_mesh`,
+            ``make_hybrid_mesh``) with a ``data`` dimension and optionally a
+            ``model`` one; every rank builds the trainer with the same
+            arguments and the same global batches. ``batch_size`` must
+            divide by ranks × ``grad_accum``. None: every rank of the
+            default process group when one of several ranks is started (as
+            JAX's trainer takes every device), else one device.
+        fsdp: shard parameters, gradients, optimizer state and EMA over the
+            data dimension (FSDP2 with the JAX plan) instead of replicating
+            them; without ``mesh``, over every rank (``make_mesh()``).
     """
 
     def __init__(
@@ -237,11 +345,6 @@ class Trainer:
         ema_eval: bool = True,
         fsdp: bool = False,
     ) -> None:
-        if mesh is not None or fsdp:
-            raise NotImplementedError(
-                "mesh data parallelism and FSDP are not ported yet (ROADMAP A11); "
-                "the port's Trainer drives one device"
-            )
         if nan_guard not in (None, "skip", "raise"):
             raise ValueError(f"nan_guard must be None|'skip'|'raise', got {nan_guard!r}")
         if ema_decay is not None and not 0.0 <= ema_decay < 1.0:
@@ -252,6 +355,7 @@ class Trainer:
             )
         self.device = torch.device(device if device is not None else "cuda")
         self.model = model.to(self.device)
+        self._distribute(mesh, fsdp, optimizer, batch_size, grad_accum)
         self.train_dataset = train_dataset
         self.test_dataset = test_dataset
         self.optimizer = optimizer
@@ -284,7 +388,7 @@ class Trainer:
         )
         os.makedirs(output_dir, exist_ok=True)
         self.metrics_csv_path = os.path.join(output_dir, "training_metrics.csv")
-        if save_config_snapshot:
+        if save_config_snapshot and self.is_main:
             save_configs(self.model_config, self.dataset_config, self.train_config, output_dir,
                          device=str(self.device))
         self._bn_stats = {
@@ -294,6 +398,164 @@ class Trainer:
         self.ema = self._ema_seed() if ema_decay is not None else None
         self.start_epoch = 0
         self.best_acc = 0.0
+
+    # -- distribution ---------------------------------------------------
+
+    def _distribute(self, mesh, fsdp: bool, optimizer, batch_size: int, grad_accum: int) -> None:
+        """Lay the model out over ``mesh``: DDP, FSDP2 or the
+        tensor-parallel plan (see the class docstring)."""
+        self._ddp = None
+        self._data_group = self._model_group = None
+        self.world = 1
+        self.fsdp = bool(fsdp)
+        several = (torch.distributed.is_available() and torch.distributed.is_initialized()
+                   and torch.distributed.get_world_size() > 1)
+        if mesh is None and (fsdp or several):  # every rank, as JAX's default mesh
+            from pointvit_tpu_torch.parallel import make_mesh
+
+            mesh = make_mesh(device_type=self.device.type)
+        self.mesh = mesh
+        if mesh is None:
+            return
+        from pointvit_tpu_torch.parallel import replicate, shard_fsdp
+        from pointvit_tpu_torch.parallel.comm import group_size
+
+        if mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh cannot train on {self.device}")
+        names = mesh.mesh_dim_names
+        if "data" not in names:
+            raise ValueError(f"the mesh needs a 'data' dimension, has {names}")
+        self._data_group = mesh.get_group("data")
+        self.world = group_size(self._data_group)
+        tp = "model" in names and mesh.size(names.index("model")) > 1
+        if tp:
+            self._model_group = mesh.get_group("model")
+        if batch_size % (self.world * grad_accum):
+            raise ValueError(f"batch_size={batch_size} must divide by {self.world} data ranks "
+                             f"x grad_accum={grad_accum}")
+        replicate(self.model, mesh)  # every rank starts from rank 0's weights
+        if tp:
+            if self.fsdp:
+                raise ValueError("fsdp=True with a tensor-parallel model dimension is not "
+                                 "supported: shard over the data dimension only")
+            from torch.distributed.tensor.parallel import parallelize_module
+
+            from pointvit_tpu_torch.parallel import transformer_tp_shardings
+
+            parallelize_module(self.model, mesh["model"],
+                               transformer_tp_shardings(self.model, mesh))
+        elif self.fsdp:
+            shard_fsdp(self.model, mesh)
+        else:
+            from torch.nn.parallel import DistributedDataParallel
+
+            ids = None
+            if self.device.type == "cuda":
+                ids = [self.device.index if self.device.index is not None
+                       else torch.cuda.current_device()]
+            self._ddp = DistributedDataParallel(self.model, device_ids=ids,
+                                                process_group=self._data_group,
+                                                broadcast_buffers=False)
+        optimizer.rebind(self.model.named_parameters())
+        if self.fsdp:
+            from pointvit_tpu_torch.parallel.fsdp import replicated_parameters
+
+            whole = set(replicated_parameters(self.model))
+            self._averaged = [p for n, p in self.model.named_parameters() if n in whole]
+        elif tp:
+            self._averaged = list(self.model.parameters())
+
+    @property
+    def is_main(self) -> bool:
+        """Whether this process writes the files (rank 0, or no mesh)."""
+        return self.mesh is None or torch.distributed.get_rank() == 0
+
+    def _average_gradients(self) -> None:
+        """Average over the data group the gradients no wrapper reduced
+        (FSDP's replicated leaves; every gradient under tensor parallelism)."""
+        if self._ddp is not None or self._data_group is None:
+            return
+        for p in self._averaged:
+            if p.grad is not None:
+                g = _local(p.grad)
+                torch.distributed.all_reduce(g, group=self._data_group)
+                g.div_(self.world)
+
+    def _all_ranks_true(self, flag: torch.Tensor) -> bool:
+        """A per-rank boolean made one for every rank (all of them true)."""
+        if self._data_group is None:
+            return bool(flag)
+        v = flag.to(torch.int32).reshape(1)
+        for group in (self._data_group, self._model_group):
+            if group is not None:
+                torch.distributed.all_reduce(v, op=torch.distributed.ReduceOp.MIN, group=group)
+        return bool(v)
+
+    def _rows(self, *arrays):
+        """This rank's contiguous rows of a global batch (numpy arrays)."""
+        if self.world == 1:
+            return arrays
+        r = torch.distributed.get_rank(self._data_group)
+        return tuple(a[r * (len(a) // self.world):(r + 1) * (len(a) // self.world)]
+                     if isinstance(a, np.ndarray) and a.ndim else a for a in arrays)
+
+    def _sum_over_ranks(self, t: torch.Tensor) -> torch.Tensor:
+        if self._data_group is not None:
+            t = t.clone()
+            torch.distributed.all_reduce(t, group=self._data_group)
+        return t
+
+    def _reshard(self) -> None:
+        """Free FSDP's gathered weights, so that the next forward gathers the
+        shards anew (after the shards changed outside a step)."""
+        if self.fsdp:
+            from torch.distributed.fsdp import FSDPModule
+
+            for m in self.model.modules():
+                if isinstance(m, FSDPModule):
+                    m.reshard()
+
+    def _full(self, t: torch.Tensor) -> torch.Tensor:
+        """A whole tensor on every rank from a DTensor (a collective)."""
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    def _shard_like(self, full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        """``full`` laid out as ``like``: this rank's part as a DTensor when
+        ``like`` is one, else ``full`` on ``like``'s device."""
+        if not hasattr(like, "to_local"):
+            return full.to(like.device, like.dtype)
+        from torch.distributed.tensor import DTensor
+
+        local = full
+        for dim, placement in enumerate(like.placements):
+            if placement.is_shard():
+                mesh = like.device_mesh
+                local = local.chunk(mesh.size(dim), placement.dim)[mesh.get_local_rank(dim)]
+        return DTensor.from_local(local.to(_local(like).device, like.dtype).contiguous(),
+                                  like.device_mesh, like.placements, run_check=False)
+
+    def _load_model_state(self, state: dict) -> None:
+        """Copy whole tensors into the model's parameters and buffers, a
+        rank's part into a sharded one; raises on a missing or extra key."""
+        own = {k: v for k, v in self.model.state_dict().items()
+               if not k.endswith("num_batches_tracked")}
+        given = {k: v for k, v in state.items() if not k.endswith("num_batches_tracked")}
+        if set(own) != set(given):
+            raise KeyError(f"checkpoint does not match the model: missing "
+                           f"{sorted(set(own) - set(given))}, unused {sorted(set(given) - set(own))}")
+        with torch.no_grad():
+            for k, t in own.items():
+                _local(t).copy_(_local(self._shard_like(given[k].float(), t)))
+        self._reshard()
+
+    def _reshard_optimizer_state(self) -> None:
+        """Lay the optimizer's restored moments out as their parameters."""
+        state = self.optimizer.optimizer.state
+        for p in self.optimizer.params:
+            for key in ("exp_avg", "exp_avg_sq"):
+                if key in state.get(p, {}) and hasattr(p, "to_local") \
+                        and not hasattr(state[p][key], "to_local"):
+                    state[p][key] = self._shard_like(state[p][key], p)
 
     # -- state ------------------------------------------------------------
 
@@ -322,28 +584,48 @@ class Trainer:
     # -- steps ------------------------------------------------------------
 
     def train_step(self, points: torch.Tensor, labels: torch.Tensor):
-        """One update on a device batch. Returns (mean loss, correct count,
-        skipped) with the first two as device scalars."""
+        """One update on a device batch (under a mesh, this rank's rows of
+        the global batch). Returns (mean loss, correct count, skipped) with
+        the first two as device scalars, this rank's under a mesh. The loss
+        of an MoE model adds ``train_config['moe_aux_weight']`` (default
+        0.01) times the mean router load-balance loss."""
+        from pointvit_tpu_torch.nn.moe import collect_moe_aux_loss
+
         a_n = self.grad_accum
         saved = ({n: b.clone() for n, b in self._bn_stats.items()}
                  if self.nan_guard == "skip" else None)
         self.optimizer.zero_grad()
         loss_sum = torch.zeros((), device=self.device)
         correct = torch.zeros((), dtype=torch.int64, device=self.device)
+        forward = self._ddp if self._ddp is not None else self.model
+        moe = bool(getattr(self.model, "moe_experts", 0))
+        aux_weight = float(self.train_config.get("moe_aux_weight", 0.01))
         for a in range(a_n):
             pts, lbl = (points, labels) if a_n == 1 else (points[a::a_n], labels[a::a_n])
-            logits = self.model(pts, train=True, generator=self.generator)
-            loss = cross_entropy_loss(logits, lbl, self.label_smoothing).mean()
-            (loss / a_n).backward()
+            last = a == a_n - 1
+            sync = contextlib.nullcontext()
+            if self._ddp is not None and not last:
+                sync = self._ddp.no_sync()
+            elif self.fsdp:
+                self.model.set_requires_gradient_sync(last)
+            rows = global_batch(self._data_group, len(lbl)) if self.mesh is not None \
+                else contextlib.nullcontext()
+            with sync, rows:
+                logits = forward(pts, train=True, generator=self.generator)
+                loss = cross_entropy_loss(logits, lbl, self.label_smoothing).mean()
+                if moe:
+                    loss = loss + aux_weight * collect_moe_aux_loss(self.model).to(loss.device)
+                (loss / a_n).backward()
             loss_sum += loss.detach()
             correct += (logits.detach().argmax(-1) == lbl).sum()
+        self._average_gradients()
         loss = loss_sum / a_n
         if saved is not None:
             finite = torch.isfinite(loss)
             for p in self.optimizer.params:
                 if p.grad is not None:
-                    finite &= torch.isfinite(p.grad).all()
-            if not bool(finite):
+                    finite &= torch.isfinite(_local(p.grad)).all()
+            if not self._all_ranks_true(finite):
                 with torch.no_grad():
                     for n, b in self._bn_stats.items():
                         b.copy_(saved[n])
@@ -355,9 +637,28 @@ class Trainer:
         return loss, correct, False
 
     def _eval_forward(self, points: torch.Tensor) -> torch.Tensor:
-        if self.ema is not None and self.ema_eval:
-            return functional_call(self.model, self.ema, (points,), {"train": False})
-        return self.model(points, train=False)
+        if self.mesh is None:
+            if self.ema is not None and self.ema_eval:
+                return functional_call(self.model, self.ema, (points,), {"train": False})
+            return self.model(points, train=False)
+        with global_batch(self._data_group, len(points)):
+            if self.ema is None or not self.ema_eval:
+                return self.model(points, train=False)
+            # The EMA lies in the parameters' layout (sharded under FSDP):
+            # swap it in, run, swap the weights back.
+            current = dict(self.model.named_parameters()) | self._bn_stats
+            kept = {n: current[n].detach().clone() for n in self.ema}
+            with torch.no_grad():
+                for n, e in self.ema.items():
+                    current[n].copy_(e)
+            self._reshard()
+            try:
+                return self.model(points, train=False)
+            finally:
+                with torch.no_grad():
+                    for n, t in kept.items():
+                        current[n].copy_(t)
+                self._reshard()
 
     @torch.no_grad()
     def _eval_step(self, points, labels, weights):
@@ -370,6 +671,9 @@ class Trainer:
     # -- epochs -----------------------------------------------------------
 
     def _batches(self, loader, prepare=None):
+        if self.world > 1:  # this rank's rows of each global batch
+            shard = prepare
+            prepare = (lambda *b: self._rows(*shard(*b))) if shard else self._rows
         if self.prefetch > 0:
             return iter(Prefetcher(loader, self.device, prepare, depth=self.prefetch))
         return (transfer(b, self.device, prepare) for b in loader)
@@ -387,6 +691,10 @@ class Trainer:
             num_batches += 1
         if num_batches == 0:
             return 0.0, 0.0
+        if self.world > 1:  # the ranks' means of equal row counts, and their counts
+            loss_sum = self._sum_over_ranks(loss_sum) / self.world
+            correct_sum = self._sum_over_ranks(correct_sum)
+            count *= self.world
         if skipped:
             self.nan_skipped_total += skipped
             print(f"warning: epoch {epoch + 1}: skipped {skipped} non-finite train step(s)")
@@ -423,6 +731,7 @@ class Trainer:
             loss_sum += loss
             correct_sum += correct
             count += n
+        loss_sum, correct_sum = self._sum_over_ranks(loss_sum), self._sum_over_ranks(correct_sum)
         if count == 0:
             return 0.0, 0.0
         return float(loss_sum) / count, float(correct_sum) / count
@@ -432,6 +741,8 @@ class Trainer:
     def _prepare_metrics_csv(self) -> None:
         """Fresh run: write the header. Resumed run: keep the history up to
         the restored epoch and append from there."""
+        if not self.is_main:
+            return
         headers = ["epoch", "train_loss", "train_accuracy", "test_loss", "test_accuracy"]
         if self.log_lr:
             headers.append("learning_rate")
@@ -451,6 +762,8 @@ class Trainer:
         return 0.0 if self.schedule is None else float(self.schedule(self.step))
 
     def _update_metrics_csv(self, epoch, train_loss, train_acc, test_loss, test_acc) -> None:
+        if not self.is_main:
+            return
         row = [epoch + 1, train_loss, train_acc, test_loss, test_acc]
         if self.log_lr:
             row.append(self._current_lr())
@@ -458,16 +771,23 @@ class Trainer:
             csv.writer(f).writerow(row)
 
     def _save_checkpoint(self, filename: str, epoch: int, accuracy: float) -> str:
-        return save_checkpoint(
-            self.output_dir, filename, epoch=epoch, accuracy=accuracy,
-            state={
-                "model": self.model.state_dict(),
-                "optimizer": self.optimizer.state_dict(),
-                "step": self.step,
-                "ema": self.ema,
-            },
-            model_config=self.model_config, dataset_config=self.dataset_config,
-        )
+        state = {
+            "model": self.model.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+            "step": self.step,
+            "ema": self.ema,
+        }
+        if self.mesh is not None:  # whole tensors, gathered by every rank, written by rank 0
+            state = _map_tensors(state, self._full)
+        path = os.path.join(self.output_dir, filename)
+        if self.is_main:
+            path = save_checkpoint(
+                self.output_dir, filename, epoch=epoch, accuracy=accuracy, state=state,
+                model_config=self.model_config, dataset_config=self.dataset_config,
+            )
+        if self.mesh is not None:
+            torch.distributed.barrier(self._data_group)
+        return path
 
     def load_checkpoint(self, path: str) -> None:
         """Restore the model, optimizer, update count and EMA from a
@@ -475,7 +795,10 @@ class Trainer:
         or a JAX trainer's ``.msgpack`` (:meth:`_restore_jax`)."""
         restored = load_checkpoint(path, map_location=self.device)
         if "model" in restored:
-            self.model.load_state_dict(restored["model"])
+            if self.mesh is None:
+                self.model.load_state_dict(restored["model"])
+            else:
+                self._load_model_state(restored["model"])
             self.optimizer.load_state_dict(restored["optimizer"])
             if self.ema_decay is not None:
                 # A checkpoint written without EMA seeds the average from the
@@ -483,6 +806,13 @@ class Trainer:
                 self.ema = restored.get("ema") or self._ema_seed()
         else:
             self._restore_jax(restored)
+        if self.mesh is not None:
+            self._reshard_optimizer_state()
+            if self.ema is not None:
+                current = dict(self.model.named_parameters()) | self._bn_stats
+                self.ema = {n: e if hasattr(e, "to_local") else
+                            self._shard_like(e.float(), current[n]).float()
+                            for n, e in self.ema.items()}
         self.start_epoch = int(restored["epoch"]) + 1
         self.best_acc = float(restored.get("accuracy") or 0.0)
         # The best checkpoint's sidecar, of this trainer's files or of a
@@ -507,7 +837,10 @@ class Trainer:
         variables = {"params": restored["params"]}
         if restored.get("batch_stats"):
             variables["batch_stats"] = restored["batch_stats"]
-        load_flax_variables(self.model, variables)
+        if self.mesh is None:
+            load_flax_variables(self.model, variables)
+        else:
+            self._load_model_state(flax_to_state_dict(variables, self.model.state_dict().keys()))
         load_optax_state(self.model, self.optimizer, restored["opt_state"])
         if self.ema_decay is not None:
             tree = {"params": restored.get("ema_params", restored["params"])}
@@ -536,6 +869,8 @@ class Trainer:
                 self._save_checkpoint(f"model_epoch_{epoch + 1}{SUFFIX}", epoch, test_acc)
             for hook in self.epoch_hooks:
                 hook(self, epoch)
+            if not self.is_main:
+                continue
             msg = (
                 f"Epoch {epoch + 1}/{self.epochs} [{time.time() - t0:.1f}s]  "
                 f"train loss {train_loss:.4f} acc {train_acc:.4f}  "
@@ -545,8 +880,9 @@ class Trainer:
                 msg += f"  lr {self._current_lr():.6f}"
             print(msg)
         self.best_acc = best_acc
-        print(f"\nTraining completed. Best test accuracy: {best_acc:.4f}")
-        print(f"Training metrics saved to {self.metrics_csv_path}")
+        if self.is_main:
+            print(f"\nTraining completed. Best test accuracy: {best_acc:.4f}")
+            print(f"Training metrics saved to {self.metrics_csv_path}")
         return best_acc
 
     # -- inference --------------------------------------------------------

@@ -1,6 +1,6 @@
 """The port's public surface against the JAX package's: every name in the
-``__all__`` of ``pointvit_tpu.models``, ``.ops``, ``.train`` and
-``.pretrained`` has a
+``__all__`` of ``pointvit_tpu.models``, ``.ops``, ``.train``,
+``.pretrained``, ``.nn`` and ``.parallel`` has a
 counterpart of the same name in the port's package, or is listed below with
 the ROADMAP item that will bring it (and ROADMAP.md names it there), or is
 left out by design (and ROADMAP.md's "Not ported, by design" paragraph
@@ -28,10 +28,13 @@ NOT_PORTED = {
     "ops": {"fps_sampling_with_knn": "A12", "benchmark_fps_implementations": "A12"},
     "train": {},
     "pretrained": {},
+    "nn": {},
+    "parallel": {},
 }
 # JAX names the port leaves out by design: the port keeps a trainer's state
 # in the module's and the optimizer's state dicts, not in a flax struct.
-BY_DESIGN = {"models": set(), "ops": set(), "train": {"TrainState"}, "pretrained": set()}
+BY_DESIGN = {"models": set(), "ops": set(), "train": {"TrainState"}, "pretrained": set(),
+             "nn": set(), "parallel": set()}
 
 
 def _roadmap_item(item: str) -> str:

@@ -1712,3 +1712,96 @@ def test_a_reference_apf_checkpoint_serves_on_the_card_within_the_serving_gate(d
     top2 = np.sort(want, -1)[:, -2:]
     decided = top2[:, 1] - top2[:, 0] > 2.0**-6 * scale
     assert (got.argmax(-1) == want.argmax(-1))[decided].all()
+
+
+def test_the_moe_pix4point_trunk_serves_and_trains_through_the_kernels(dev):
+    """The MoE trunk (vit_small widths, 4 blocks, every second an MoE block
+    of 4 experts, top-2, bf16) serves 8 clouds of 2048 points on the kernel
+    path within 0.05 of max|logit| of the plain path, the dense blocks on
+    their kernels and the MoE blocks' attention on the attention kernel; a
+    training step launches the attention forward and backward and gives
+    every router a nonzero gradient, no further from an f32 run than 1.5x
+    the plain path's (the bf16 noise of the Pix4Point step test above)."""
+    import numpy as np
+
+    from pointvit_tpu_torch.models import build_model
+    from pointvit_tpu_torch.nn.moe import collect_moe_aux_loss
+    from pointvit_tpu_torch.train import cross_entropy_loss
+
+    cfg = dict(P4P_F32, bf16=True, depth=4, moe_experts=4, moe_every=2)
+    pts = np.random.default_rng(3).standard_normal((8, 2048, 3)).astype(np.float32)
+    got, want, counts = _serve_both(dev, cfg, pts, (8,))
+    for name in ("fps", "knn", "p3_embed", "vit_block", "mha_qkv"):
+        assert counts[name] > 0, counts
+    assert np.abs(got - want).max() <= 0.05 * np.abs(want).max()
+
+    torch.manual_seed(0)
+    model = build_model(cfg).to(dev)
+    plain = build_model(cfg, implementation="torch").to(dev)
+    ref = build_model({**cfg, "bf16": False}, implementation="torch").to(dev)
+    plain.load_state_dict(model.state_dict())
+    ref.load_state_dict(model.state_dict())
+    x = torch.from_numpy(pts).to(dev)
+    lbl = torch.arange(8, device=dev) % 15
+    grads = []
+    for m in (model, plain, ref):
+        _build.reset_launch_counts()
+        logits = m(x, train=True, generator=torch.Generator(device=dev).manual_seed(4))
+        (cross_entropy_loss(logits, lbl).mean() + 0.01 * collect_moe_aux_loss(m)).backward()
+        if m is model:
+            c = _build.launch_counts()
+            assert c["mha_qkv"] > 0 and c["mha_qkv_bwd"] > 0 and c["vit_block"] == 0, c
+        for i in (1, 3):
+            assert m.model.blocks[i].mlp.gate.grad.abs().max() > 0
+        grads.append(torch.cat([p.grad.float().flatten() for p in m.parameters()]))
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()  # noqa: E731
+    assert rel(grads[0], grads[2]) <= 1.5 * rel(grads[1], grads[2])
+
+
+def test_a_world1_fsdp_step_through_the_kernels_matches_a_step_without(dev, tmp_path):
+    """A one-rank NCCL group: an APF step (E 128, 2 heads of 64, 2 blocks,
+    bf16) under ``Trainer(fsdp=True)`` against ``Trainer()`` from the same
+    seed and batch: the training kernels launch, and the weights after the
+    step agree within 1e-6 relative (both run torch's multi-tensor AdamW; at
+    one rank FSDP's collectives are copies)."""
+    import os
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from pointvit_tpu_torch.models import AdaptPointFormer, apf_trainable_mask
+    from pointvit_tpu_torch.parallel import make_mesh
+    from pointvit_tpu_torch.train import Trainer, build_optimizer, constant_schedule
+
+    cfg = dict(num_classes=15, in_channels=3, embedding_dim=128, npoint=64, nsample=16, depth=2,
+               num_heads=2, encoder_second_width=128, dtype=torch.bfloat16)
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp_path, "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        torch.manual_seed(0)
+        base = AdaptPointFormer(**cfg)
+        pts = torch.from_numpy(np.random.default_rng(5).standard_normal((16, 512, 3)).astype(
+            np.float32)).to(dev)
+        lbl = torch.arange(16, device=dev) % 15
+        states = []
+        for kw in ({}, {"mesh": make_mesh(), "fsdp": True}):
+            model = AdaptPointFormer(**cfg)
+            model.load_state_dict(base.state_dict())
+            opt = build_optimizer(model, constant_schedule(1e-3), weight_decay=0.05,
+                                  trainable_mask=apf_trainable_mask(model), grad_clip=1.0)
+            tr = Trainer(model, train_dataset=None, test_dataset=None, optimizer=opt, batch_size=16,
+                         epochs=1, output_dir=str(tmp_path), device=dev, train_loader=[],
+                         test_loader=[], save_config_snapshot=False, **kw)
+            _build.reset_launch_counts()
+            tr.train_step(pts, lbl)
+            torch.cuda.synchronize()
+            c = _build.launch_counts()
+            assert c["fps"] > 0 and c["mha_qkv"] > 0 and c["mha_qkv_bwd"] > 0, c
+            states.append({k: (v.full_tensor() if hasattr(v, "full_tensor") else v).detach().clone()
+                           for k, v in model.state_dict().items()})
+        for k, want in states[0].items():
+            if want.is_floating_point():
+                err = (states[1][k] - want).abs().max() / want.abs().max().clamp_min(1e-30)
+                assert err <= 1e-6, (k, err.item())
+    finally:
+        dist.destroy_process_group()

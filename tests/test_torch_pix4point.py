@@ -314,8 +314,8 @@ def test_build_model_builds_the_jax_architecture(cfg):
 
 
 def test_what_is_not_ported_raises():
-    with pytest.raises(NotImplementedError, match="A11"):
-        Pix4Point(**CFG, moe_experts=4)
+    moe = Pix4Point(**CFG, moe_experts=4, moe_every=2)  # the MoE trunk is ported (A11)
+    assert [type(b).__name__ for b in moe.model.blocks][:2] == ["ViTBlock", "MoEViTBlock"]
     with pytest.raises(NotImplementedError, match="A12"):  # quantized=True serves (B10 ported)
         build_model({**APF_CFG, "remat_encoder": True})
     with pytest.raises(ValueError, match="preset"):

@@ -60,6 +60,9 @@ CONFIGS = {
             "num_heads": 1, "encoder_second_width": 32, "bf16": False},
     "pix4point": {"num_classes": 5, "pretrained_model": "vit_small_patch16_384", "embed_dim": 64, "depth": 1,
                   "num_heads": 1, "k_neighbors": 4, "bf16": False},
+    "pix4point_moe": {"num_classes": 5, "pretrained_model": "vit_small_patch16_384", "embed_dim": 64,
+                      "depth": 2, "num_heads": 1, "k_neighbors": 4, "bf16": False, "moe_experts": 4,
+                      "moe_every": 2},
     "renderer": {"num_classes": 5, "vit_name": "vit_tiny_test", "adapter_dim": 8, "num_views": 2, "img_size": 16,
                  "view_transform_hidden": 16, "diff_renderer": True, "dropout_rate": 0.0, "bf16": False},
 }
@@ -117,10 +120,11 @@ def _close(got, want, name):
     assert np.abs(got - want).max() <= REL_TOL * np.abs(want).max(), name
 
 
-@pytest.mark.parametrize("case", ["apf", "pix4point", "pix4point_frozen", "renderer", "renderer_clip"])
+@pytest.mark.parametrize("case", ["apf", "pix4point", "pix4point_frozen", "pix4point_moe", "renderer",
+                                  "renderer_clip"])
 def test_a_jax_run_resumes_in_the_port(case, tmp_path):
     family = case.split("_")[0]
-    cfg = CONFIGS[family]
+    cfg = CONFIGS.get(case, CONFIGS[family])
     variables = state_dict_to_flax(_randomize(build_model(cfg, family), 0))
     params = variables["params"]
     model = load_flax_variables(build_model(cfg, family), variables)

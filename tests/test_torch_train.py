@@ -398,9 +398,14 @@ def test_ema_decay_zero_tracks_the_params(tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
-    for kw in (dict(fsdp=True), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="A11"):
-            _trainer(_Probe(), tmp_path, **kw)
+    class Mesh:  # a mesh's interface, as far as the trainer's checks read it
+        def __init__(self, device_type, names):
+            self.device_type, self.mesh_dim_names = device_type, names
+
+    with pytest.raises(ValueError, match="'data' dimension"):
+        _trainer(_Probe(), tmp_path, mesh=Mesh("cpu", ("model",)))
+    with pytest.raises(ValueError, match="cuda mesh cannot train on cpu"):
+        _trainer(_Probe(), tmp_path, mesh=Mesh("cuda", ("data",)))
 
 
 def test_apf_trainer_from_config_dicts(tmp_path, monkeypatch):
