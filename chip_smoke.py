@@ -274,12 +274,33 @@
    (d) One ``exact`` APF step at 32 x 2048 with ``remat_encoder`` off and
    on: loss, gradients and BatchNorm statistics bit-equal (else within
    1e-6 relative, with the worst printed), and the peak memory of both.
+24. ``layouts``, after step 23, on a world-1 NCCL group. (a)
+   ``train_pix4point.py``'s MoE model (4 experts, ``moe_every`` 2, top-2)
+   with its experts on a (data 1 x expert 1) mesh under
+   ``Trainer(mesh=...)``, 3 steps at 64 x 2048, and (b) slim2 under
+   ``Trainer(fsdp=True, mesh=make_hybrid_mesh(model_parallel=1))``, 3 steps
+   at 64 x 1024, each against ``Trainer()`` from the same weights, seed and
+   batches: bit-equal, else within 1e-6 relative (the case printed); FPS,
+   kNN and both attention kernels must launch. (e) One epoch-end slim2
+   checkpoint of (b)'s trainer, synchronous and deferred: the loop's wait
+   for each, the files bit-equal. (c) slim2 bf16 and quantized slim2 at
+   full depth exported with their launch and int8 weights baked in and
+   served from the artifact at requests 1/32/256: logits bit-equal to the
+   live session, every kernel of the live path launched (quant-dense
+   too), bucket 256 timed against live (and once each under
+   ``torch.profiler``: kernel time and launches), the artifact's bytes
+   printed. (d)
+   ``P3Embed(sample_ratio=1/16, scale=4, embed_dim=512)`` in bf16 on 64 x
+   2048 clouds (2048 -> 512 -> 128 tokens; stage 0's width 256 is the
+   group-MLP kernels', stage 1's 3 + 256 channels take the GEMM chain),
+   kernel path against plain within 2^-6: ``p3_embed`` and
+   ``p3_embed_chain`` must each launch.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero; without a CUDA device it exits 1 before doing anything. It imports
 nothing of JAX, nothing of the JAX package ``pointvit_tpu`` and no ``h5py``. The paths run
-at full depth; the whole run takes about six minutes of command time, the
+at full depth; the whole run takes about seven minutes of command time, the
 kernels' build (all sources in parallel) one to two.
 """
 
@@ -3690,6 +3711,284 @@ def entry_phase(torch, dev, _build, smi: str) -> list:
     return counts
 
 
+# The layouts phase. (a), (b): LAYOUT_STEPS steps under each layout at world 1
+# against Trainer() from the same weights, seed and batches. (d): a
+# two-stage P3Embed (2048 -> 512 -> 128 tokens); its stage-0 width is
+# embed_dim / 2 = 256, the group-MLP kernels' only width, so stage 0 takes
+# them and stage 1 (3 + 256 channels, above their 16) the GEMM chain.
+LAYOUT_STEPS = 3
+LAYOUT_P3 = dict(sample_ratio=1 / 16, scale=4, embed_dim=512)
+LAYOUT_P3_BATCH = 64
+
+
+def held_layout(torch, label, layout, base) -> None:
+    """A layout's run against the one-process run: bit for bit, else every
+    weight within 1e-6 relative after the last step (the case printed)."""
+    (l1, s1), (l0, s0) = layout, base
+    same = l1 == l0 and all(torch.equal(s1[k], t) for k, t in s0.items())
+    worst = max(rel_err(torch, s1[k], t)[1] for k, t in s0.items() if t.is_floating_point())
+    case = "bit-equal" if same else f"not bit-equal, worst weight within {worst:.3g} relative"
+    print(f"layouts {label} vs Trainer() after {LAYOUT_STEPS} steps: {case} (losses {l1} vs {l0})",
+          flush=True)
+    if not (same or worst <= 1e-6):
+        fail(f"layouts {label} drifted from the one-process trainer")
+
+
+def layout_runs(torch, dev, _build, smi, tmp) -> tuple[list, object]:
+    """(a) the MoE Pix4Point on a (data 1 x expert 1) mesh and (b) slim2
+    under fsdp=True on make_hybrid_mesh(model_parallel=1), each against
+    Trainer(); returns the launch counts and (b)'s one-process trainer."""
+    import os
+
+    from pointvit_tpu_torch.models import AdaptPointFormer, apf_preset_config, apf_trainable_mask
+    from pointvit_tpu_torch.models import build_model
+    from pointvit_tpu_torch.nn.moe import MoEMlp
+    from pointvit_tpu_torch.parallel import make_hybrid_mesh
+    from pointvit_tpu_torch.train import Trainer, build_optimizer, timm_cosine_schedule
+    from pointvit_tpu_torch.train.pix4point_trainer import pix4point_optimizer
+
+    full = lambda v: (v.full_tensor() if hasattr(v, "full_tensor") else v).detach().clone()  # noqa: E731
+    counts, kept = [], None
+    rng = np.random.default_rng(SEED + 90)
+    moe_cfg = {**P4P_CONFIG, "pretrained": False, **MOE_KEYS}
+    apf_cfg = apf_preset_config("slim2", num_classes=TRAIN_CLASSES)
+    gen = torch.Generator().manual_seed(SEED + 90)
+    moe_base = build_model(moe_cfg)
+    randomize(torch, moe_base, gen)
+    with torch.no_grad():  # the experts and the router at their fan-in scale
+        for m in moe_base.modules():
+            if isinstance(m, MoEMlp):
+                for name in ("gate", "w1", "w2"):
+                    p = getattr(m, name)
+                    p.copy_(torch.randn(p.shape, generator=gen) * p.shape[-2] ** -0.5)
+    apf_base = AdaptPointFormer(**apf_cfg)
+    randomize(torch, apf_base, gen)
+    cases = {}
+    for label, cfg, base, batch, points in (
+            ("(a) MoE Pix4Point", moe_cfg, moe_base, P4P_TRAIN_CONFIG["batch_size"], P4P_POINTS),
+            ("(b) slim2 fsdp", apf_cfg, apf_base, PARALLEL_BATCH, POINTS)):
+        data = []
+        for _ in range(LAYOUT_STEPS):
+            pts, lbl = shape_clouds(rng, batch, TRAIN_CLASSES, points)
+            data.append((torch.from_numpy(pts).to(dev), torch.from_numpy(lbl).to(dev)))
+        cases[label] = (cfg, base, batch, data)
+
+    def trainer(label, mesh, **kw):
+        cfg, base, batch, _ = cases[label]
+        if label.startswith("(a)"):
+            model = build_model(cfg)
+            if mesh is not None:  # the model's experts over the mesh, rows over every rank
+                for m in model.modules():
+                    if isinstance(m, MoEMlp):
+                        m.mesh, m.data_axis = mesh, "data"
+            model.load_state_dict(base.state_dict())
+            sched, opt = pix4point_optimizer(model, P4P_TRAIN_CONFIG, 1)
+        else:
+            model = AdaptPointFormer(**cfg)
+            model.load_state_dict(base.state_dict())
+            sched = timm_cosine_schedule(LR, 100, 1, warmup_epochs=5, warmup_lr_init=1e-3)
+            opt = build_optimizer(model, sched, weight_decay=WEIGHT_DECAY,
+                                  trainable_mask=apf_trainable_mask(model), grad_clip=1.0)
+        return Trainer(model, train_dataset=None, test_dataset=None, optimizer=opt, schedule=sched,
+                       batch_size=batch, epochs=1, label_smoothing=LABEL_SMOOTHING,
+                       output_dir=os.path.join(tmp, label[:3]), seed=SEED, device=dev,
+                       train_loader=[], test_loader=[], save_config_snapshot=False, mesh=mesh,
+                       model_config=SLIM2_MODEL_CONFIG, **kw)
+
+    for label in cases:
+        runs = {}
+        for where in ("one process", "mesh"):
+            mesh = None
+            kw = {}
+            if where == "mesh":
+                expert = label.startswith("(a)")
+                mesh = make_hybrid_mesh(model_parallel=1, model_axis="expert" if expert else "model")
+                kw = {} if expert else {"fsdp": True}
+            tr = trainer(label, mesh, **kw)
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            losses = [tr.train_step(*b)[0].item() for b in cases[label][3]]
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts.append(_build.launch_counts())
+            for name in TRAINING_COUNTERS:
+                if counts[-1].get(name, 0) <= 0:
+                    fail(f"layouts {label} {where} never launched the {name} kernel")
+            runs[where] = (losses, {k: full(v) for k, v in tr.model.state_dict().items()})
+            print(f"layouts {label} {where}: {LAYOUT_STEPS} steps of {cases[label][2]} clouds, "
+                  f"{secs * 1e3 / LAYOUT_STEPS:.1f} ms/step with the first ({smi})", flush=True)
+            if where == "one process" and label.startswith("(b)"):
+                kept = tr
+            else:
+                del tr
+        held_layout(torch, label, runs["mesh"], runs["one process"])
+    return counts, kept
+
+
+def layout_artifacts(torch, dev, _build, smi, base, requests, tmp) -> list:
+    """(c) slim2 (bf16) and quantized slim2 at full width and depth exported
+    with their launch and int8 weights baked in, saved, loaded and served at
+    requests 1/32/256: logits bit-equal to the live session's, every kernel
+    of the live path launched; bucket 256 timed artifact against live, the
+    artifact's bytes printed."""
+    import os
+
+    from pointvit_tpu_torch.export import export_forward
+    from pointvit_tpu_torch.models import AdaptPointFormer, apf_preset_config
+    from pointvit_tpu_torch.serve import InferenceSession
+
+    counts = []
+    reqs = [r for r in requests if len(r) in (1, 32, 256)]
+    for label, quantized, need in (("slim2 bf16", False, SERVING_COUNTERS),
+                                   ("quantized slim2", True, QUANT_COUNTERS)):
+        model = AdaptPointFormer(**apf_preset_config("slim2", quantized=quantized))
+        model.load_state_dict(base.state_dict())
+        live = InferenceSession(model, device=dev)
+        live.warmup(reqs[0][0])
+        want = [live.predict_logits(r) for r in reqs]
+        t0 = time.perf_counter()
+        blob = export_forward(model, reqs[0])
+        t_export = time.perf_counter() - t0
+        path = os.path.join(tmp, f"{label.replace(' ', '_')}.pt2")
+        with open(path, "wb") as f:
+            f.write(blob)
+        art = InferenceSession.from_exported(path)
+        art.warmup(reqs[0][0])
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        got = [art.predict_logits(r) for r in reqs]
+        torch.cuda.synchronize()
+        counts.append(_build.launch_counts())
+        for name in need:
+            if counts[-1].get(name, 0) <= 0:
+                fail(f"the {label} artifact never launched the {name} kernel")
+        same = all(np.array_equal(g, w) for g, w in zip(got, want))
+        big = reqs[-1]
+        ta1 = cuda_ms(torch, lambda: art.predict_logits(big), 5)
+        tl1 = cuda_ms(torch, lambda: live.predict_logits(big), 5)
+        tl2 = cuda_ms(torch, lambda: live.predict_logits(big), 5)
+        ta2 = cuda_ms(torch, lambda: art.predict_logits(big), 5)
+        weights = sum(t.numel() * t.element_size() for t in (*model.parameters(), *model.buffers()))
+        split = {side: device_time_by_kernel(torch, run) for side, run in (
+            ("artifact", lambda: art.predict_logits(big)), ("live", lambda: live.predict_logits(big)))}
+        print(f"layouts (c) {label} bucket-256 request under torch.profiler: " + "; ".join(
+            f"{side} {r['wall_ms']:.3f} ms on the host's clock, {r['device_ms']:.3f} ms of kernels, "
+            f"{r['launches']} launches" for side, r in split.items()), flush=True)
+        print(f"layouts (c) {label} artifact: {len(blob)} bytes (the live model's parameters and "
+              f"buffers {weights}), exported in {t_export:.2f} s; requests 1/32/256 bit-equal to the "
+              f"live session {same}; bucket-256 request: artifact {(ta1 + ta2) / 2:.3f} ms (runs "
+              f"{ta1:.3f}, {ta2:.3f}), live {(tl1 + tl2) / 2:.3f} ms (runs {tl1:.3f}, {tl2:.3f}) "
+              f"({smi})", flush=True)
+        if not same:
+            fail(f"the {label} artifact's logits are not the live session's")
+        del model, live, art, blob
+    torch.cuda.empty_cache()
+    return counts
+
+
+def layout_p3(torch, dev, _build, smi) -> dict:
+    """(d) a two-stage P3Embed (LAYOUT_P3, bf16) on LAYOUT_P3_BATCH clouds of
+    2048 points, kernel path against the plain path within BF16_REL_TOL of
+    max|ref|: stage 0 takes the group-MLP kernels, stage 1 the GEMM chain,
+    each launching."""
+    from pointvit_tpu_torch.nn.pointnet import P3Embed
+
+    gen = torch.Generator().manual_seed(SEED + 93)
+    mod = P3Embed(**LAYOUT_P3, dtype=torch.bfloat16)
+    randomize(torch, mod, gen)
+    plain = P3Embed(**LAYOUT_P3, dtype=torch.bfloat16, implementation="torch")
+    plain.load_state_dict(mod.state_dict())
+    mod, plain = mod.to(dev).eval(), plain.to(dev).eval()
+    pts = torch.from_numpy(np.random.default_rng(SEED + 93).standard_normal(
+        (LAYOUT_P3_BATCH, P4P_POINTS, 3)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        _build.reset_launch_counts()
+        centers, tokens = mod(pts, pts)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        pc, ptok = plain(pts, pts)
+        ms = cuda_ms(torch, lambda: mod(pts, pts), 5)
+        pms = cuda_ms(torch, lambda: plain(pts, pts), 2)
+    d, r = rel_err(torch, tokens, ptok)
+    print(f"layouts (d) P3Embed {LAYOUT_P3} on {LAYOUT_P3_BATCH} x {P4P_POINTS}: tokens "
+          f"{tuple(tokens.shape)}, max|d| / max|ref| {r:.3g} (bound {BF16_REL_TOL:.3g}); centres "
+          f"equal {torch.equal(centers, pc)}; p3_embed {counts.get('p3_embed', 0)}, p3_embed_chain "
+          f"{counts.get('p3_embed_chain', 0)} launches; kernel path {ms:.3f} ms, plain {pms:.3f} ms "
+          f"({smi})", flush=True)
+    if tokens.shape != (LAYOUT_P3_BATCH, P4P_POINTS // 16, LAYOUT_P3["embed_dim"]) \
+            or not torch.isfinite(tokens.float()).all() or not torch.equal(centers, pc):
+        fail("the two-stage P3Embed's tokens or centres are wrong")
+    if not r <= BF16_REL_TOL:
+        fail("the two-stage P3Embed's kernel path disagrees with its plain path")
+    for name in ("p3_embed", "p3_embed_chain"):
+        if counts.get(name, 0) <= 0:
+            fail(f"the two-stage P3Embed never launched {name}")
+    return counts
+
+
+def layout_checkpoints(torch, tr, smi) -> None:
+    """(e) one epoch-end checkpoint of slim2's trainer, written in the loop
+    (``save_checkpoint`` of the trainer's state) and deferred (the
+    trainer's own): the training loop's wait for each (the deferred one with
+    the frozen trunk's host copy made, as after a first save), and the files
+    bit-equal."""
+    from pointvit_tpu_torch.train.checkpoint import save_checkpoint, wait_for_pending_writes
+    from pointvit_tpu_torch.train.trainer import _map_tensors
+
+    def synchronous(name):
+        state = _map_tensors(tr._checkpoint_state(), lambda t: t.to("cpu"))
+        return save_checkpoint(tr.output_dir, name, epoch=0, accuracy=0.5, state=state,
+                               model_config=tr.model_config, dataset_config=tr.dataset_config)
+
+    waits, paths = {}, {}
+    for label, save in (("first deferred", lambda n: tr._save_checkpoint(n, 0, 0.5)),
+                        ("synchronous", synchronous),
+                        ("deferred", lambda n: tr._save_checkpoint(n, 0, 0.5))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        paths[label] = save(f"{label.replace(' ', '_')}.pt")
+        waits[label] = time.perf_counter() - t0
+        wait_for_pending_writes()
+        waits[label + " written"] = time.perf_counter() - t0
+    with open(paths["synchronous"], "rb") as f:
+        sync = f.read()
+    with open(paths["deferred"], "rb") as f:
+        deferred = f.read()
+    print(f"layouts (e) slim2 checkpoint ({len(sync)} bytes): the loop waits "
+          f"{waits['synchronous'] * 1e3:.1f} ms synchronous, {waits['deferred'] * 1e3:.1f} ms deferred "
+          f"({waits['deferred written'] * 1e3:.1f} ms until written; the first deferred save, which "
+          f"copies the frozen trunk to the host, {waits['first deferred'] * 1e3:.1f} ms); files "
+          f"bit-equal {sync == deferred} ({smi})", flush=True)
+    if sync != deferred:
+        fail("a deferred checkpoint differs from the synchronous one")
+
+
+def layouts_phase(torch, dev, _build, smi, base, requests) -> list:
+    """The layouts phase at world 1 (a NCCL group of this process alone)."""
+    import os
+
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_layouts_")
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        counts, kept = layout_runs(torch, dev, _build, smi, tmp)
+        layout_checkpoints(torch, kept, smi)
+        del kept
+        torch.cuda.empty_cache()
+        counts += layout_artifacts(torch, dev, _build, smi, base, requests, tmp)
+        counts.append(layout_p3(torch, dev, _build, smi))
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"layouts phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
+
+
 def main() -> None:
     try:
         import torch
@@ -3792,6 +4091,10 @@ def main() -> None:
     # -- the entry points: the sampler, the data layer, the four training
     # -- scripts and evaluate from HDF5 trees the port wrote, remat_encoder ----
     entry_counts = entry_phase(torch, dev, _build, smi)
+
+    # -- the layouts: the Trainer on an expert and a (data x model) FSDP mesh,
+    # -- baked artifacts, a two-stage P3Embed, deferred checkpoint writes ------
+    layout_counts = layouts_phase(torch, dev, _build, smi, model, requests)
 
     # -- the fifth path: quantized (w8a8) slim2 serving on the same weights ---
     t_quant = time.perf_counter()
@@ -4334,7 +4637,7 @@ def main() -> None:
              rend["counts"], quant["counts"], ab_counts, knn_wide_counts, long["counts"], longer["counts"],
              p4p_off_counts, apf32["counts"], p4p32["counts"], small["serve_counts"],
              small["train_counts"], k24["counts"], *io_counts, *ingest_counts, *parallel_counts,
-             *entry_counts)
+             *entry_counts, *layout_counts)
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(c.get(name, 0) for c in paths), **results[name]}

@@ -22,12 +22,22 @@ away: a wrapper takes its op only while ``torch.export`` traces
 op wherever the eager forward would launch the kernel (or on the CPU run
 its plain version). Registering an op builds nothing.
 
+An exported program carries the weights its kernels launch with, made once
+at export (:func:`bake`): while :func:`baking` is in force, each module that
+keeps launch-ready weights (a block's cast and transposed matrices, a
+quantized layer's int8 weight and scales) records them as it makes them;
+:func:`bake` then registers them as the module's buffers, in place of the
+raw parameters they come from, which leave the module, and the module's
+forward takes them from :func:`baked_weights`.
+
 ``python -m pointvit_tpu_torch._build`` prints ptxas's report for every
 kernel (registers, spills, wgmma warnings): :func:`ptxas_report`.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import hashlib
 import re
@@ -41,8 +51,9 @@ from pathlib import Path
 import torch
 
 __all__ = [
-    "LaunchCounter", "NAMESPACE", "build_kernels", "check", "exporting", "kernel", "kernel_op",
-    "launch_counts", "ptxas_report", "require", "reset_launch_counts", "stream_ptr",
+    "LaunchCounter", "NAMESPACE", "bake", "baked_weights", "baking", "build_kernels", "check",
+    "exporting", "is_baking", "kernel", "kernel_op", "launch_counts", "ptxas_report",
+    "record_baked", "require", "reset_launch_counts", "stream_ptr",
 ]
 
 _PKG = Path(__file__).resolve().parent
@@ -217,6 +228,56 @@ def exporting() -> bool:
     """Whether ``torch.export`` is tracing: the wrappers then call their
     custom ops instead of launching (or running their plain versions)."""
     return torch.compiler.is_exporting()
+
+
+_BAKING: contextvars.ContextVar[dict | None] = contextvars.ContextVar("pointvit_baking",
+                                                                    default=None)
+_BAKED = "_baked_names"  # a baked module's attribute: the names of its baked buffers
+
+
+@contextlib.contextmanager
+def baking():
+    """Inside, :func:`record_baked` collects the launch weights each module
+    makes; yields the dict module → weights."""
+    made: dict = {}
+    token = _BAKING.set(made)
+    try:
+        yield made
+    finally:
+        _BAKING.reset(token)
+
+
+def record_baked(module: torch.nn.Module, weights) -> None:
+    """Hand ``weights`` (a tuple of tensors) that ``module`` made for its
+    launches to the :func:`baking` in force, if any."""
+    made = _BAKING.get()
+    if made is not None:
+        made[module] = tuple(weights)
+
+
+def is_baking() -> bool:
+    return _BAKING.get() is not None
+
+
+def baked_weights(module: torch.nn.Module):
+    """The weights :func:`bake` gave ``module`` (its buffers), or None."""
+    names = getattr(module, _BAKED, None)
+    return None if names is None else tuple(getattr(module, n) for n in names)
+
+
+def bake(module: torch.nn.Module, weights, raw) -> None:
+    """Make ``weights`` ``module``'s launch weights for good: buffers
+    ``baked_<i>``, which an exported program stores, while each parameter in
+    ``raw`` (the ones the weights are made from, which the forward no longer
+    reads) leaves the module (the attribute is then None), so that the
+    program holds no second copy. In place: bake a copy of a model
+    (``export.py``)."""
+    for i, t in enumerate(weights):
+        module.register_buffer(f"baked_{i}", t.detach())
+    setattr(module, _BAKED, tuple(f"baked_{i}" for i in range(len(weights))))
+    for owner, name in raw:
+        del owner._parameters[name]
+        setattr(owner, name, None)
 
 
 def kernel_op(name: str, fake):

@@ -84,7 +84,7 @@ def flax_to_state_dict(variables, target_keys) -> dict[str, torch.Tensor]:
                 name = "weight"
                 arr = arr.reshape(-1, arr.shape[-1]).T if arr.ndim == 4 else arr.T
             elif leaf == "scale":
-                name = "scale" if f"{mod}.scale" in target_keys else "weight"
+                name = "scale" if (f"{mod}.scale" if mod else "scale") in target_keys else "weight"
             else:
                 name = leaf
             key = f"{mod}.{name}" if mod else name

@@ -21,10 +21,15 @@ with no model class and no checkpoint, given only the port's op library
   ladder (``serve.py``) needs one artifact. The point count and channels
   are fixed by the example. ``batch_polymorphic=False`` fixes the batch
   too, and the program then refuses any other.
-- **Weights.** The program computes what the eager forward keeps in caches
-  (the blocks' launch weights, a quantized layer's int8 weight) from the
-  weights inside it at every call; the live model's caches are left as they
-  were.
+- **Weights.** The program holds what the eager forward keeps in caches,
+  made once at export and stored in place of the parameters they come
+  from: each fused block's launch weights (cast to the compute dtype, the
+  APF block's also folded and transposed) and each quantized layer's int8
+  weight and scales. A call feeds them straight to the kernels' ops, with
+  no re-layout, as JAX bakes its variables into its artifact as constants
+  (``pointvit_tpu/export.py:44-63``). The export traces a copy of the model
+  that shares its parameters (:func:`baked_copy`); the live model and its
+  caches are left as they were.
 
 The CLI is ``python -m pointvit_tpu_torch.export --checkpoint ... --out ...``
 (the counterpart of ``scripts/export_model.py``).
@@ -33,6 +38,7 @@ The CLI is ``python -m pointvit_tpu_torch.export --checkpoint ... --out ...``
 from __future__ import annotations
 
 import argparse
+import copy
 import io
 import json
 
@@ -40,8 +46,9 @@ import numpy as np
 import torch
 
 import pointvit_tpu_torch.ops  # noqa: F401  (registers the kernels' custom ops)
+from pointvit_tpu_torch._build import bake, baking
 
-__all__ = ["export_forward", "load_forward", "save_exported", "load_exported"]
+__all__ = ["baked_copy", "export_forward", "load_forward", "save_exported", "load_exported"]
 
 MAX_BATCH = 1 << 16  # the symbolic batch's range in a batch-polymorphic program
 _META = "pointvit_meta.json"
@@ -56,6 +63,33 @@ class _Forward(torch.nn.Module):
 
     def forward(self, points: torch.Tensor) -> torch.Tensor:
         return self.model(points).float()
+
+
+def _raw_parameters(module: torch.nn.Module) -> list[tuple[torch.nn.Module, str]]:
+    """The parameters a module's baked weights stand for: every parameter
+    of a block (its launch weights come from all of them), a quantized
+    layer's weight (its bias stays, added by the kernel's epilogue)."""
+    from pointvit_tpu_torch.nn.quant import QuantLinear
+
+    if isinstance(module, QuantLinear):
+        return [(module, "weight")]
+    return [(m, n) for m in module.modules() for n, p in m._parameters.items() if p is not None]
+
+
+def baked_copy(model: torch.nn.Module, example: torch.Tensor) -> torch.nn.Module:
+    """A copy of ``model`` (eval mode) that shares its parameters and
+    buffers, in which every module that made launch weights on one forward
+    of ``example`` holds them as buffers, in place of the parameters they
+    come from. The forward is eager, so it takes the routes the traced
+    program will take (a block outside its fused gate bakes nothing); the
+    live model is left as it was."""
+    memo = {id(t): t for t in (*model.parameters(), *model.buffers())}
+    copied = copy.deepcopy(model, memo)
+    with torch.no_grad(), baking() as made:
+        copied(example)
+    for module, weights in made.items():
+        bake(module, weights, _raw_parameters(module))
+    return copied
 
 
 def export_forward(model: torch.nn.Module, example, *, batch_polymorphic: bool = True) -> bytes:
@@ -83,8 +117,9 @@ def export_forward(model: torch.nn.Module, example, *, batch_polymorphic: bool =
         # Traced at two clouds: torch.export specialises an axis of size 1.
         x = x[:1].expand(2, -1, -1).contiguous()
         dynamic = ({0: torch.export.Dim("batch", min=1, max=MAX_BATCH)},)
+    baked = baked_copy(model, x)
     with torch.no_grad():
-        program = torch.export.export(_Forward(model), (x,), dynamic_shapes=dynamic, strict=False)
+        program = torch.export.export(_Forward(baked), (x,), dynamic_shapes=dynamic, strict=False)
     meta = {"points": x.shape[1], "channels": x.shape[2], "device": str(device),
             "batch": None if batch_polymorphic else x.shape[0]}
     buf = io.BytesIO()

@@ -2,8 +2,8 @@
 
 Counterparts of ``pointvit_tpu/nn/heads.py``: ``ClassificationHead`` (APF,
 E → 512 → 256 → classes, Dropout(0.4), ``heads.py:16-30``) and ``ClsHead``
-(Pix4Point, 2E → 256 → 256 → classes, Dropout(0.5), ``heads.py:33-51``):
-each hidden layer is Linear → BatchNorm (eps 1e-5) → ReLU → Dropout, with
+(Pix4Point, 2E → 256 → 256 → classes, Dropout(0.5), ``heads.py:33-51``;
+its ``mlps`` and ``dropout_rate`` as in flax): each hidden layer is Linear → BatchNorm (eps 1e-5) → ReLU → Dropout, with
 submodules ``fc0, bn0, fc1, bn1, out``. ``RendererHead`` (``heads.py:54-69``)
 is LayerNorm ``norm`` → ``fc0`` (512) → GELU → Dropout → ``fc1`` (256) →
 GELU → Dropout → ``out``. At inference the BatchNorms use
@@ -30,26 +30,29 @@ class ClassificationHead(nn.Module):
     def __init__(self, in_dim: int, num_classes: int, widths=(512, 256),
                  dropout_rate: float = 0.4) -> None:
         super().__init__()
-        self.fc0 = nn.Linear(in_dim, widths[0])
-        self.bn0 = nn.BatchNorm1d(widths[0], eps=1e-5, momentum=0.1)
-        self.fc1 = nn.Linear(widths[0], widths[1])
-        self.bn1 = nn.BatchNorm1d(widths[1], eps=1e-5, momentum=0.1)
-        self.out = nn.Linear(widths[1], num_classes)
+        self.depth = len(widths)
+        for i, w in enumerate(widths):
+            self.add_module(f"fc{i}", nn.Linear(in_dim, w))
+            self.add_module(f"bn{i}", nn.BatchNorm1d(w, eps=1e-5, momentum=0.1))
+            in_dim = w
+        self.out = nn.Linear(in_dim, num_classes)
         self.dropout = Dropout(dropout_rate)  # fixed, as in the JAX heads
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        for fc, bn in ((self.fc0, self.bn0), (self.fc1, self.bn1)):
-            h = torch.relu(batch_norm(linear(x, fc), bn, train=train))
+        for i in range(self.depth):
+            h = torch.relu(batch_norm(linear(x, getattr(self, f"fc{i}")), getattr(self, f"bn{i}"),
+                                      train=train))
             x = self.dropout(h, train=train, generator=generator)
         return linear(x, self.out)
 
 
 class ClsHead(ClassificationHead):
-    """Pix4Point head: 2E → 256 → 256 → classes, Dropout(0.5)."""
+    """Pix4Point head: 2E → ``mlps`` (256 → 256) → classes, Dropout(0.5)."""
 
-    def __init__(self, in_dim: int, num_classes: int) -> None:
-        super().__init__(in_dim, num_classes, widths=(256, 256), dropout_rate=0.5)
+    def __init__(self, in_dim: int, num_classes: int, mlps=(256, 256),
+                 dropout_rate: float = 0.5) -> None:
+        super().__init__(in_dim, num_classes, widths=tuple(mlps), dropout_rate=dropout_rate)
 
 
 class RendererHead(nn.Module):

@@ -195,13 +195,15 @@ class Mlp(nn.Module):
     """fc1 → exact GELU → dropout → fc2 → dropout (timm layout,
     ``pointvit_tpu/nn/layers.py:35-55``); both products int8 when
     ``quantized``. ``dropout_rate`` is 0 by default, as the APF block passes
-    none; the Pix4Point trunk's blocks pass theirs."""
+    none; the Pix4Point trunk's blocks pass theirs. ``out_features`` is fc2's
+    width (None: ``dim``, the input's, as in flax)."""
 
-    def __init__(self, dim: int, hidden: int, quantized: bool = False,
-                 implementation: str | None = None, dropout_rate: float = 0.0) -> None:
+    def __init__(self, dim: int, hidden_features: int, quantized: bool = False,
+                 implementation: str | None = None, dropout_rate: float = 0.0,
+                 out_features: int | None = None) -> None:
         super().__init__()
-        self.fc1 = dense(quantized, dim, hidden, True, implementation)
-        self.fc2 = dense(quantized, hidden, dim, True, implementation)
+        self.fc1 = dense(quantized, dim, hidden_features, True, implementation)
+        self.fc2 = dense(quantized, hidden_features, out_features or dim, True, implementation)
         self.dropout = Dropout(dropout_rate)
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
@@ -214,11 +216,14 @@ class Mlp(nn.Module):
 
 class AdapterLayer(nn.Module):
     """APF bottleneck adapter: LN → down → ReLU → dropout → up → ×scale, plus
-    its own residual (the reference's internal add, kept as the JAX package
-    keeps it). ``up_proj`` starts at zero and ``scale`` at one, as in flax."""
+    its own residual when ``add_residual`` (the reference's internal add,
+    kept as the JAX package keeps it; the default). ``up_proj`` starts at
+    zero and ``scale`` at one, as in flax."""
 
-    def __init__(self, dim: int, bottleneck: int = 64, dropout_rate: float = 0.0) -> None:
+    def __init__(self, dim: int, bottleneck: int = 64, dropout_rate: float = 0.0,
+                 add_residual: bool = True) -> None:
         super().__init__()
+        self.add_residual = add_residual
         self.adapter_norm = nn.LayerNorm(dim, eps=LN_EPS)
         self.down_proj = nn.Linear(dim, bottleneck)
         self.dropout = Dropout(dropout_rate)
@@ -233,7 +238,7 @@ class AdapterLayer(nn.Module):
         h = torch.relu(linear(layer_norm(x, self.adapter_norm), self.down_proj))
         h = self.dropout(h, train=train, generator=generator)
         h = linear(h, self.up_proj) * self.scale.to(x.dtype)
-        return h + x
+        return h + x if self.add_residual else h
 
 
 class SimpleAdapter(nn.Module):

@@ -30,12 +30,19 @@ from pointvit_tpu_torch.parallel.expert import fan_in_normal_init, moe_ffn
 __all__ = ["MoEMlp", "MoEViTBlock", "collect_moe_aux_loss"]
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (differentiable), or the tensor itself."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
 class MoEMlp(nn.Module):
     """Mixture-of-experts transformer MLP: (B, S, M) → (B, S, M) in the
     layer's ``dtype`` (the weights are cast to it, then the routing and the
     experts compute in f32, as in JAX). With ``mesh`` the experts and the
     tokens shard over ``expert_axis`` (see ``parallel/expert.py``); the
-    module then holds every expert and each rank uses its E/n."""
+    module then holds every expert and each rank uses its E/n, or, after
+    :func:`~pointvit_tpu_torch.parallel.expert.shard_experts` (the
+    ``Trainer`` on an expert mesh), its E/n alone."""
 
     def __init__(self, dim: int, num_experts: int, hidden_features: int, *, top_k: int = 2,
                  capacity_factor: float = 2.0, normalize_gates: bool = False,
@@ -59,7 +66,9 @@ class MoEMlp(nn.Module):
         self.aux_loss: torch.Tensor | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        params = {k: getattr(self, k).to(self.dtype) for k in ("gate", "w1", "b1", "w2", "b2")}
+        # Expert weights sharded by parallel.expert.shard_experts enter as
+        # this rank's E/n experts (their local shards).
+        params = {k: _local(getattr(self, k)).to(self.dtype) for k in ("gate", "w1", "b1", "w2", "b2")}
         out, self.aux_loss = moe_ffn(
             x.to(self.dtype), params, self.mesh, expert_axis=self.expert_axis,
             data_axis=self.data_axis, top_k=self.top_k, capacity_factor=self.capacity_factor,

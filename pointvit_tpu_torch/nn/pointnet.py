@@ -33,6 +33,8 @@ recompute, as flax updates ``batch_stats`` once.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -140,19 +142,26 @@ class GroupFeatureEncoder(nn.Module):
 
 
 class P3Embed(nn.Module):
-    """Point-patch tokenizer (Pix4Point ``P3Embed``, ``nn/pointnet.py:142-279``).
+    """Progressive point-patch tokenizer (Pix4Point ``P3Embed``,
+    ``nn/pointnet.py:142-279``).
 
-    With the reference's sampling (ratio 0.25, scale 4) it has one stage,
-    whose layers are named ``s0_*`` as in flax: FPS to N/4 centres, kNN
-    grouping (absolute neighbour coordinates), concat [coords, features],
-    conv1 (``layers/2`` linears, only the last with a bias, then BN → ReLU),
-    concat [global max, local], conv2 (``layers/2`` linears without bias,
-    each BN → ReLU; widths 2·dim … dim), max over the group: 2048 points →
-    512 tokens of width ``embed_dim``.
+    ``int(log_scale(1 / sample_ratio))`` stages, as in flax; the reference's
+    sampling (ratio 0.25, scale 4) gives one. Stage ``s`` has layers named
+    ``s{s}_*`` and width ``embed_dim / 2^(stages-1) · 2^s`` (the last stage's
+    is ``embed_dim``): FPS to a quarter of its input's points (the reference
+    fixes that ratio whatever ``scale``), kNN grouping (absolute neighbour
+    coordinates), concat [coords, features], conv1 (``layers/2`` linears,
+    only the last with a bias, then BN → ReLU), concat [global max, local],
+    conv2 (``layers/2`` linears without bias, each BN → ReLU; widths 2·dim …
+    dim), max over the group. Stage ``s + 1`` takes stage ``s``'s centres as
+    its points and its tokens as its features: 2048 points → 512 tokens of
+    width ``embed_dim`` in one stage, → 512 → 128 in two.
 
-    At inference the stage runs
-    :func:`~pointvit_tpu_torch.ops.p3_kernel.fused_p3_embed` (the kernel
-    chain on the card) where the JAX package takes its fused stage:
+    At inference each stage runs
+    :func:`~pointvit_tpu_torch.ops.p3_kernel.fused_p3_embed` on
+    :func:`~pointvit_tpu_torch.ops.p3_kernel.fold_p3_stage_params` of that
+    stage (the kernels on the card: the group-MLP kernels inside their gate,
+    else the GEMM chain) where the JAX package takes its fused stage:
     ``layers == 4`` and B·S % 16 == 0 (``nn/pointnet.py:168-186``).
     ``implementation='torch'`` runs the fused stage's plain version. Any
     other shape runs :meth:`stage_unfused` (eval-mode BN, eps 1e-5) on
@@ -165,63 +174,79 @@ class P3Embed(nn.Module):
     leaves its fused kernel when training (``nn/pointnet.py:168-171``).
     FPS starts at point 0, or, in training with a generator, at a random
     point of every cloud drawn from it (one draw per stage), as the JAX
-    stage draws its starts from the ``'fps'`` stream.
+    stage draws its starts from the ``'fps'`` stream, split once a stage.
     """
 
-    def __init__(self, in_channels: int = 3, k: int = 16, layers: int = 4, embed_dim: int = 256,
+    def __init__(self, in_channels: int = 3, sample_ratio: float = 0.25, scale: int = 4,
+                 k: int = 16, layers: int = 4, embed_dim: int = 256,
                  dtype: torch.dtype = torch.float32, implementation: str | None = None) -> None:
         super().__init__()
         if implementation not in (None, "torch"):
             raise ValueError(f"unknown implementation: {implementation!r}")
+        self.stages = int(math.log(1 / sample_ratio, scale))
+        if self.stages < 1:
+            raise ValueError(f"sample_ratio={sample_ratio}, scale={scale} give no stage")
         self.k = k
         self.layers = layers
         self.embed_dim = embed_dim
         self.dtype = dtype
         self.implementation = implementation
         bn = lambda n: nn.BatchNorm1d(n, eps=BN_EPS, momentum=0.1)  # flax momentum 0.9
-        half, dim = layers // 2, embed_dim
-        width = 3 + in_channels
-        for i in range(half):
-            self.add_module(f"s0_conv1_{i}", nn.Linear(width, dim, bias=i == half - 1))
-            width = dim
-        self.s0_conv1_bn = bn(dim)
-        width = 2 * dim
-        for i, w in enumerate([2 * dim] * (half - 1) + [dim]):
-            self.add_module(f"s0_conv2_{i}", nn.Linear(width, w, bias=False))
-            self.add_module(f"s0_conv2_bn{i}", bn(w))
-            width = w
+        half, dim, in_ch = layers // 2, int(embed_dim // 2 ** (self.stages - 1)), in_channels
+        for s in range(self.stages):
+            width = 3 + in_ch
+            for i in range(half):
+                self.add_module(f"s{s}_conv1_{i}", nn.Linear(width, dim, bias=i == half - 1))
+                width = dim
+            self.add_module(f"s{s}_conv1_bn", bn(dim))
+            width = 2 * dim
+            for i, w in enumerate([2 * dim] * (half - 1) + [dim]):
+                self.add_module(f"s{s}_conv2_{i}", nn.Linear(width, w, bias=False))
+                self.add_module(f"s{s}_conv2_bn{i}", bn(w))
+                width = w
+            in_ch, dim = dim, 2 * dim
 
     def forward(self, points: torch.Tensor, features: torch.Tensor, *, train: bool = False,
                 generator: torch.Generator | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-        """points (B, N, 3), features (B, N, C_in) → (centres (B, N/4, 3),
-        tokens (B, N/4, embed_dim) in the module's dtype)."""
-        start = random_starts(points, generator) if train and generator is not None else None
-        # The reference fixes the ratio at 4 (pix4point.py:174).
-        centers, dp, fj = p3_group(points, features, points.shape[1] // 4, self.k, start=start,
-                                   implementation=self.implementation)
-        x = torch.cat([dp, fj], dim=-1).to(self.dtype)  # (B, S, k, 3 + C_in)
+        """points (B, N, 3), features (B, N, C_in) → (centres (B, N/4^stages,
+        3), tokens (B, N/4^stages, embed_dim) in the module's dtype)."""
+        p, f = points, features
+        for s in range(self.stages):
+            start = random_starts(p, generator) if train and generator is not None else None
+            # The reference fixes the ratio at 4 (pix4point.py:174).
+            centers, dp, fj = p3_group(p, f, p.shape[1] // 4, self.k, start=start,
+                                       implementation=self.implementation)
+            x = torch.cat([dp, fj], dim=-1).to(self.dtype)  # (B, S, k, 3 + C)
+            f = self._stage(x, s, train)
+            p = centers
+        return p, f
+
+    def _stage(self, x: torch.Tensor, stage: int, train: bool) -> torch.Tensor:
+        """One stage's conv stacks on its groups (B, S, K, C) → (B, S, dim)."""
         if train:
-            return centers, self.stage_unfused(x, train=True)
+            return self.stage_unfused(x, train=True, stage=stage)
         B, S, K, C = x.shape
         if self.layers == 4 and (B * S) % 16 == 0:
-            stage = reference_folded_p3 if self.implementation == "torch" else fused_p3_embed
-            return centers, stage(x.reshape(B * S, K, C), fold_p3_stage_params(self)).reshape(B, S, -1)
-        return centers, self.stage_unfused(x)
+            fold = fold_p3_stage_params(self, stage)
+            run = reference_folded_p3 if self.implementation == "torch" else fused_p3_embed
+            return run(x.reshape(B * S, K, C), fold).reshape(B, S, -1)
+        return self.stage_unfused(x, stage=stage)
 
-    def stage_unfused(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
-        """The stage's conv stacks layer by layer, (B, S, K, C) → (B, S, dim),
-        with BatchNorm on batch statistics when ``train``, else on its
-        running statistics."""
+    def stage_unfused(self, x: torch.Tensor, *, train: bool = False, stage: int = 0) -> torch.Tensor:
+        """Stage ``stage``'s conv stacks layer by layer, (B, S, K, C) →
+        (B, S, dim), with BatchNorm on batch statistics when ``train``, else
+        on its running statistics."""
         bn = lambda t, m: batch_norm(t, m, train=train)  # noqa: E731
+        layer = lambda name: getattr(self, f"s{stage}_{name}")  # noqa: E731
         half = self.layers // 2
         for i in range(half):
-            x = linear(x, getattr(self, f"s0_conv1_{i}"))
-        x = torch.relu(bn(x, self.s0_conv1_bn))
+            x = linear(x, layer(f"conv1_{i}"))
+        x = torch.relu(bn(x, layer("conv1_bn")))
         g = x.amax(dim=-2, keepdim=True)
         x = torch.cat([g.expand_as(x), x], dim=-1)
         for i in range(half):
-            x = linear(x, getattr(self, f"s0_conv2_{i}"))
-            x = torch.relu(bn(x, getattr(self, f"s0_conv2_bn{i}")))
+            x = linear(x, layer(f"conv2_{i}"))
+            x = torch.relu(bn(x, layer(f"conv2_bn{i}")))
         return x.amax(dim=-2)
 
 

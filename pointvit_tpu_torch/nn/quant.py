@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from pointvit_tpu_torch._build import exporting
+from pointvit_tpu_torch._build import baked_weights, exporting, is_baking, record_baked
 from pointvit_tpu_torch.ops.quant_kernel import quant_dense, quantize_weight, reference_quant_dense
 
 __all__ = ["QuantLinear", "dense", "dynamic_quant_matmul"]
@@ -47,8 +47,17 @@ class QuantLinear(nn.Linear):
     def quantized_weight(self) -> tuple[torch.Tensor, torch.Tensor]:
         """(wq (N, K) int8, sw (N,) f32), rebuilt only when ``weight`` changed;
         made anew, and not kept, under ``inference_mode`` (no version counter
-        to key on) and while ``torch.export`` traces (fake tensors)."""
+        to key on) and while ``torch.export`` traces (fake tensors); in an
+        exported program the pair baked at export
+        (:func:`~pointvit_tpu_torch._build.bake`)."""
+        baked = baked_weights(self)
+        if baked is not None:
+            return baked
         w = self.weight
+        if is_baking():
+            made = quantize_weight(w)
+            record_baked(self, made)
+            return made
         if w.is_inference() or exporting():
             return quantize_weight(w)
         key = (w._version, w.data_ptr(), w.device)

@@ -34,7 +34,9 @@ compute dtype, for APF also folded and transposed) and makes them anew only
 when a parameter changes, as ``QuantLinear`` keeps its int8 weight: an
 in-place update bumps the parameter's version, a move changes its storage.
 A block that is an FSDP unit keeps nothing: FSDP gathers its weights into
-the same storage before each forward.
+the same storage before each forward. An exported program holds the
+launch weights themselves, made once at export, in place of the block's
+parameters (:func:`~pointvit_tpu_torch._build.bake`, ``export.py``).
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pointvit_tpu_torch._build import exporting
+from pointvit_tpu_torch._build import baked_weights, exporting, is_baking, record_baked
 from pointvit_tpu_torch.nn.layers import (
     AdapterLayer,
     Attention,
@@ -92,13 +94,26 @@ class LaunchWeights:
     are they while ``torch.export`` traces, whose fake parameters have no
     storage (the program computes them, and the cache is left as it was),
     and for a module that is an FSDP unit, whose gathered weights come back
-    into the same storage with new values after a step."""
+    into the same storage with new values after a step. A baked module
+    (:func:`~pointvit_tpu_torch._build.bake`) returns its baked weights, and
+    under :func:`~pointvit_tpu_torch._build.baking` what is made is recorded
+    for baking."""
 
     def __init__(self) -> None:
         self._key = None
         self._value = None
 
+    def __deepcopy__(self, memo) -> "LaunchWeights":
+        return LaunchWeights()  # a copy of the module makes its own
+
     def get(self, module: nn.Module, make, *key):
+        baked = baked_weights(module)
+        if baked is not None:
+            return baked
+        if is_baking():
+            value = make()
+            record_baked(module, value)
+            return value
         params = tuple(module.parameters())
         if exporting() or any(p.is_inference() for p in params) \
                 or (FSDPModule is not None and isinstance(module, FSDPModule)):
@@ -160,11 +175,14 @@ class APFBlock(nn.Module):
         if (train or self.quantized or not apf_block_shapes_ok(*x.shape[-2:], self.num_heads)
                 or _unfused_for_tp(self, self.attention, self.mlp)):
             return self.forward_unfused(x, train=train, generator=generator)
+        baked = baked_weights(self)
+        if baked is not None:  # an exported program's: the launch weights alone
+            return fused_apf_block(x, (), self.num_heads, baked)
         weights = apf_block_weights(self)
         if self.implementation == "torch":
             return reference_apf_block(x, weights, self.num_heads)
         ready = None
-        if x.is_cuda:
+        if x.is_cuda or is_baking():
             ready = self._launch.get(self, lambda: apf_launch_weights(weights, x.dtype, x.device),
                                      x.dtype, x.device)
         return fused_apf_block(x, weights, self.num_heads, ready)

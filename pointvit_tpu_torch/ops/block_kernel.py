@@ -277,12 +277,18 @@ def _rounded(weights, dt):
     return [t.to(dt) for t in w] + [(wup.float() * s).to(dt), (bup.float() * s).to(dt)]
 
 
-def reference_apf_block(x: torch.Tensor, weights, num_heads: int) -> torch.Tensor:
-    """Plain torch APF block with the kernel chain's rounding points."""
+def reference_apf_block(x: torch.Tensor, weights, num_heads: int,
+                        launch_weights=None) -> torch.Tensor:
+    """Plain torch APF block with the kernel chain's rounding points; from
+    ``launch_weights`` (:func:`apf_launch_weights`, x's dtype) when
+    ``weights`` is empty, as an exported program holds them: the same
+    arrays, matrices seen through the same transposed strides."""
     B, S, E = x.shape
     dt = x.dtype
+    rounded = _rounded(weights, dt) if len(weights) else \
+        [t.t() if t.dim() == 2 else t for t in launch_weights]
     (g1, b1, wqkv, bqkv, wproj, bproj, g2, b2, wfc1, bfc1, wfc2, bfc2,
-     ga, ba, wdn, bdn, wup, bup) = [t.float() for t in _rounded(weights, dt)]
+     ga, ba, wdn, bdn, wup, bup) = [t.float() for t in rounded]
     rd = lambda t: t.to(dt).float()
     x2 = x.reshape(B * S, E).float()
     h = reference_layer_norm(x2, g1, b1).to(dt).float()
@@ -312,9 +318,10 @@ def fused_apf_block(x: torch.Tensor, weights, num_heads: int, launch_weights=Non
     tensor (bf16 or f32), the plain version for a CPU tensor.
     ``launch_weights``: :func:`apf_launch_weights` of ``weights`` for x's
     dtype and device, where the caller keeps them (``APFBlock`` does); made
-    here otherwise. While ``torch.export`` traces: the op
-    ``pointvit_tpu_torch::apf_block``, which the traced program then calls
-    with the launch weights it computes from its own weights."""
+    here otherwise. ``weights`` may be empty when ``launch_weights`` are
+    given (an exported program bakes those alone). While ``torch.export``
+    traces: the op ``pointvit_tpu_torch::apf_block``, which the traced
+    program then calls with the weights it holds."""
     if x.dim() != 3:
         raise ValueError(f"x must be (B, S, E), got {tuple(x.shape)}")
     B, S, E = x.shape
@@ -325,7 +332,7 @@ def fused_apf_block(x: torch.Tensor, weights, num_heads: int, launch_weights=Non
             _float_dtype(x)
         return _apf_block_op(x, list(weights), num_heads, list(launch_weights or ()))
     if not x.is_cuda:
-        return reference_apf_block(x, weights, num_heads)
+        return reference_apf_block(x, weights, num_heads, launch_weights)
     _float_dtype(x)
     out = launch_chain(x, weights, num_heads, launch_weights)
     launches.add()

@@ -49,6 +49,7 @@ __all__ = [
     "fan_in_normal_init",
     "init_moe_params",
     "moe_load_balance_loss",
+    "shard_experts",
     "upcycle_dense_mlp",
 ]
 
@@ -273,3 +274,38 @@ def moe_ffn(
             size *= mesh.size(mesh.mesh_dim_names.index(data_axis))
         aux = aux / size
     return out.reshape(b, s, m).to(x.dtype), aux
+
+
+EXPERT_WEIGHTS = ("w1", "b1", "w2", "b2")
+
+
+def shard_experts(model: torch.nn.Module, mesh, *, expert_axis: str = "expert") -> torch.nn.Module:
+    """Keep on each rank only its experts: every expert-parallel
+    :class:`~pointvit_tpu_torch.nn.moe.MoEMlp` of ``model`` (one built with
+    ``mesh``) has its ``w1``, ``b1``, ``w2``, ``b2`` made DTensors sharded on
+    the expert axis over ``mesh[expert_axis]`` (``Shard(0)``, a rank's E/n
+    experts, as JAX places them with ``P(expert_axis)``), from the whole
+    tensors every rank holds. The router stays whole. In place; returns the
+    model. Their gradients are then this rank's experts' alone, which the
+    caller sums over the ranks that hold the same experts (the other mesh
+    dimensions); a checkpoint gathers them whole (``full_tensor``)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    from pointvit_tpu_torch.nn.moe import MoEMlp
+
+    sub = mesh[expert_axis] if mesh.ndim > 1 else mesh
+    n, r = sub.size(), sub.get_local_rank()
+    for m in model.modules():
+        if not isinstance(m, MoEMlp) or m.mesh is None:
+            continue
+        for name in EXPERT_WEIGHTS:
+            p = getattr(m, name)
+            if isinstance(p, DTensor):
+                continue
+            if p.shape[0] % n:
+                raise ValueError(f"{p.shape[0]} experts not divisible by {n} expert shards")
+            local = p.detach().chunk(n, 0)[r].clone()
+            setattr(m, name, torch.nn.Parameter(
+                DTensor.from_local(local, sub, [Shard(0)], run_check=False),
+                requires_grad=p.requires_grad))
+    return model

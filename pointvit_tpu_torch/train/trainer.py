@@ -17,7 +17,15 @@ batch and the update equals the one-process update on that batch. The model
 is wrapped in DDP over the ``data`` dimension (``fsdp=False``), sharded by
 FSDP2 with the JAX plan (``fsdp=True``, :func:`~pointvit_tpu_torch.parallel.shard_fsdp`),
 or, with a ``model`` dimension above 1, laid out by the tensor-parallel plan
-with its gradients averaged over the data group. Inside the step
+with its gradients averaged over the data group, and with ``fsdp=True`` as
+well sharded by FSDP2 over the data sub-mesh on top of that plan. A
+``replica`` dimension (:func:`~pointvit_tpu_torch.parallel.make_multihost_mesh`)
+repeats the data ranks' rows, as JAX's ``P('data')`` does. On a mesh with an
+``expert`` dimension (a model built with that ``moe_mesh``) the rows spread
+over every rank, as ``moe_ffn`` shards tokens over (data, expert), each rank
+keeps only its experts (:func:`~pointvit_tpu_torch.parallel.expert.shard_experts`),
+the dense and router gradients are averaged over every rank and an expert
+shard's over the ranks that hold it. Inside the step
 (:func:`~pointvit_tpu_torch.parallel.comm.global_batch`) every rank draws the
 global batch's FPS starts and dropout masks from the shared generator and
 keeps its rows, train-mode BatchNorm takes the global batch's statistics,
@@ -43,7 +51,12 @@ from torch.func import functional_call
 
 from pointvit_tpu_torch.data.loader import Loader, Prefetcher, to_device, transfer
 from pointvit_tpu_torch.parallel.comm import global_batch
-from pointvit_tpu_torch.train.checkpoint import SUFFIX, load_checkpoint, save_checkpoint
+from pointvit_tpu_torch.train.checkpoint import (
+    SUFFIX,
+    load_checkpoint,
+    save_checkpoint_deferred,
+    wait_for_pending_writes,
+)
 from pointvit_tpu_torch.train.train_utils import save_configs
 from pointvit_tpu_torch.utils.profiling import StepTimer, profile_trace
 
@@ -74,6 +87,15 @@ def _map_tensors(tree, fn):
     return tree
 
 
+def _every_rank(mesh):
+    """A process group of every rank of ``mesh`` (the default group when
+    the mesh holds them all)."""
+    ranks = sorted(mesh.mesh.flatten().tolist())
+    if ranks == list(range(torch.distributed.get_world_size())):
+        return torch.distributed.group.WORLD
+    return torch.distributed.new_group(ranks)
+
+
 def cross_entropy_loss(
     logits: torch.Tensor, labels: torch.Tensor, label_smoothing: float = 0.0
 ) -> torch.Tensor:
@@ -92,32 +114,46 @@ def _local(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if hasattr(t, "to_local") else t
 
 
-def _sharded_group(t: torch.Tensor):
-    """The group over which a DTensor is sharded (None when replicated or
-    a plain tensor)."""
+def _sharded_groups(t: torch.Tensor) -> tuple:
+    """The groups of the mesh dimensions over which a DTensor is sharded
+    (FSDP's data dimension, tensor parallelism's model one, the experts'
+    expert one; empty when replicated or a plain tensor)."""
     placements = getattr(t, "placements", None)
-    if placements is None or not any(p.is_shard() for p in placements):
-        return None
-    return t.device_mesh.get_group()
+    if placements is None:
+        return ()
+    # not is_shard(): FSDP over a TP shard of the same axis is a strided
+    # shard, which is_shard() does not count
+    return tuple(t.device_mesh.get_group(d) for d, p in enumerate(placements)
+                 if not (p.is_replicate() or p.is_partial()))
+
+
+def _kind(p: torch.Tensor):
+    """Plain tensors (None) and DTensors by mesh: torch's multi-tensor
+    AdamW takes one kind in a list."""
+    mesh = getattr(p, "device_mesh", None)
+    return None if mesh is None else (mesh.mesh_dim_names, tuple(mesh.mesh.flatten().tolist()))
 
 
 def clip_by_global_norm(params, max_norm: float) -> torch.Tensor:
     """Scale the gradients of ``params`` by ``max_norm / norm`` where their
     global L2 norm reaches ``max_norm`` (``optax.clip_by_global_norm``);
     returns the norm before clipping. Sharded gradients (FSDP, tensor
-    parallelism) add their shards' squares over their group, so every rank
-    clips by the same norm, and a rank that holds whole tensors sums the same
-    squares in the same order as a process without shards."""
+    parallelism, expert shards) add their shards' squares over the groups of
+    the dimensions they are sharded on, once each (a copy along a replicated
+    dimension is not counted again), so every rank clips by the same norm,
+    and a rank that holds whole tensors sums the same squares in the same
+    order as a process without shards."""
     grads = [p.grad for p in params if p.grad is not None]
     squares = torch.stack([torch.linalg.vector_norm(_local(g).float()) ** 2 for g in grads])
     groups = {}
     for i, g in enumerate(grads):
-        group = _sharded_group(g)
-        if group is not None:
-            groups.setdefault(group, []).append(i)
-    for group, rows in groups.items():  # a shard's square summed over its group
+        over = _sharded_groups(g)
+        if over:
+            groups.setdefault(over, []).append(i)
+    for over, rows in groups.items():  # a shard's square summed over its groups
         part = squares[rows]
-        torch.distributed.all_reduce(part, group=group)
+        for group in over:
+            torch.distributed.all_reduce(part, group=group)
         squares[rows] = part
     norm = torch.sqrt(squares.sum())
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
@@ -163,18 +199,19 @@ class MaskedAdamW:
         layout = [(o["weight_decay"], [p for n, p in named if n not in o["no_decay"]]),
                   (0.0, [p for n, p in named if n in o["no_decay"]])]
         # A state dict keeps one group of the decayed parameters and one of
-        # the rest (``_layout``). torch's multi-tensor AdamW takes DTensors
-        # (FSDP, tensor parallelism) and plain tensors in separate lists, so
-        # the optimizer splits each of those groups by kind, with the same
-        # options; ``_of`` names the group each part belongs to.
+        # the rest (``_layout``). torch's multi-tensor AdamW takes plain
+        # tensors and the DTensors of each mesh (FSDP, tensor parallelism,
+        # both, expert shards) in separate lists, so the optimizer splits
+        # each of those groups by kind, with the same options; ``_of`` names
+        # the group each part belongs to.
         self._layout = [ps for _, ps in layout if ps]
         groups, self._of = [], []
         for j, (wd, ps) in enumerate((wd, ps) for wd, ps in layout if ps):
-            for sharded in (False, True):
-                part = [p for p in ps if hasattr(p, "to_local") == sharded]
-                if part:
-                    groups.append({"params": part, "weight_decay": wd})
-                    self._of.append(j)
+            kinds = list(dict.fromkeys(_kind(p) for p in ps))
+            kinds.sort(key=lambda k: k is not None)  # plain tensors first, as before
+            for kind in kinds:
+                groups.append({"params": [p for p in ps if _kind(p) == kind], "weight_decay": wd})
+                self._of.append(j)
         self.optimizer = torch.optim.AdamW(groups, lr=self.schedule(0), betas=o["betas"],
                                            eps=o["eps"])
 
@@ -308,15 +345,26 @@ class Trainer:
             their own average); with ``ema_eval`` the test epochs and
             :meth:`predict` use them.
         mesh: a ``DeviceMesh`` (:func:`~pointvit_tpu_torch.parallel.make_mesh`,
-            ``make_hybrid_mesh``) with a ``data`` dimension and optionally a
-            ``model`` one; every rank builds the trainer with the same
-            arguments and the same global batches. ``batch_size`` must
+            ``make_hybrid_mesh``, ``make_multihost_mesh``) with a ``data``
+            dimension and optionally a ``model``, a ``replica`` or (for a
+            model whose experts lie on this mesh) an ``expert`` one; every
+            rank builds the trainer with the same arguments and the same
+            global batches. ``batch_size`` must
             divide by ranks × ``grad_accum``. None: every rank of the
             default process group when one of several ranks is started (as
             JAX's trainer takes every device), else one device.
         fsdp: shard parameters, gradients, optimizer state and EMA over the
             data dimension (FSDP2 with the JAX plan) instead of replicating
-            them; without ``mesh``, over every rank (``make_mesh()``).
+            them, over the tensor-parallel shards where the mesh has a
+            ``model`` dimension; without ``mesh``, over every rank
+            (``make_mesh()``).
+
+    Checkpoints are written as the JAX trainer writes them
+    (``trainer.py:832-843``): the step's state is copied on its device
+    (frozen parameters: once, to the host) and the copy's move to the host,
+    its serialization and the write run on the checkpoint writer thread
+    (:func:`~pointvit_tpu_torch.train.checkpoint.save_checkpoint_deferred`)
+    while training goes on; :meth:`train` returns after they are written.
     """
 
     def __init__(
@@ -390,6 +438,7 @@ class Trainer:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.profile_dir = profile_dir
         self.step_timer = StepTimer()
+        self._frozen_host: dict[str, tuple] = {}
 
         loader_cls = loader_cls or Loader
         self.train_loader = train_loader if train_loader is not None else loader_cls(
@@ -414,10 +463,12 @@ class Trainer:
     # -- distribution ---------------------------------------------------
 
     def _distribute(self, mesh, fsdp: bool, optimizer, batch_size: int, grad_accum: int) -> None:
-        """Lay the model out over ``mesh``: DDP, FSDP2 or the
-        tensor-parallel plan (see the class docstring)."""
+        """Lay the model out over ``mesh``: DDP, FSDP2, the tensor-parallel
+        plan, both of the last two, or expert shards (see the class
+        docstring)."""
         self._ddp = None
         self._data_group = self._model_group = None
+        self._averaged = []
         self.world = 1
         self.fsdp = bool(fsdp)
         several = (torch.distributed.is_available() and torch.distributed.is_initialized()
@@ -437,9 +488,18 @@ class Trainer:
         names = mesh.mesh_dim_names
         if "data" not in names:
             raise ValueError(f"the mesh needs a 'data' dimension, has {names}")
-        self._data_group = mesh.get_group("data")
-        self.world = group_size(self._data_group)
         tp = "model" in names and mesh.size(names.index("model")) > 1
+        experts = "expert" in names
+        if experts and (tp or self.fsdp):
+            raise ValueError("a (data x expert) mesh shards the experts alone: no fsdp and no "
+                             "model dimension")
+        # The group whose ranks hold different rows of the global batch: the
+        # data dimension (the model and replica ones repeat its rows, as
+        # JAX's P('data') does), or with experts every rank of the mesh, as
+        # moe_ffn shards tokens over (data, expert).
+        self._mesh_group = _every_rank(mesh)
+        self._data_group = self._mesh_group if experts else mesh.get_group("data")
+        self.world = group_size(self._data_group)
         if tp:
             self._model_group = mesh.get_group("model")
         if batch_size % (self.world * grad_accum):
@@ -447,18 +507,19 @@ class Trainer:
                              f"x grad_accum={grad_accum}")
         replicate(self.model, mesh)  # every rank starts from rank 0's weights
         if tp:
-            if self.fsdp:
-                raise ValueError("fsdp=True with a tensor-parallel model dimension is not "
-                                 "supported: shard over the data dimension only")
             from torch.distributed.tensor.parallel import parallelize_module
 
             from pointvit_tpu_torch.parallel import transformer_tp_shardings
 
             parallelize_module(self.model, mesh["model"],
                                transformer_tp_shardings(self.model, mesh))
-        elif self.fsdp:
+        if experts:
+            from pointvit_tpu_torch.parallel.expert import shard_experts
+
+            shard_experts(self.model, mesh)
+        elif self.fsdp:  # on the data sub-mesh, over the TP plan's DTensors when there is one
             shard_fsdp(self.model, mesh)
-        else:
+        elif not tp:
             from torch.nn.parallel import DistributedDataParallel
 
             ids = None
@@ -469,13 +530,16 @@ class Trainer:
                                                 process_group=self._data_group,
                                                 broadcast_buffers=False)
         optimizer.rebind(self.model.named_parameters())
-        if self.fsdp:
-            from pointvit_tpu_torch.parallel.fsdp import replicated_parameters
-
-            whole = set(replicated_parameters(self.model))
-            self._averaged = [p for n, p in self.model.named_parameters() if n in whole]
-        elif tp:
-            self._averaged = list(self.model.parameters())
+        if self._ddp is None:
+            # What no wrapper reduces: all but FSDP's shards, averaged over
+            # the rows' group; an expert shard over the ranks that hold it
+            # (its data group), scaled by the same global count.
+            holders = mesh.get_group("data")
+            for p in self.model.parameters():
+                dims = getattr(getattr(p, "device_mesh", None), "mesh_dim_names", None) or ()
+                if self.fsdp and "data" in dims:
+                    continue
+                self._averaged.append((p, holders if "expert" in dims else self._data_group))
 
     @property
     def is_main(self) -> bool:
@@ -483,14 +547,15 @@ class Trainer:
         return self.mesh is None or torch.distributed.get_rank() == 0
 
     def _average_gradients(self) -> None:
-        """Average over the data group the gradients no wrapper reduced
-        (FSDP's replicated leaves; every gradient under tensor parallelism)."""
-        if self._ddp is not None or self._data_group is None:
-            return
-        for p in self._averaged:
+        """Sum the gradients no wrapper reduced over their group and divide
+        by the ranks that hold different rows: the mean over the global
+        batch (FSDP's replicated leaves; every gradient under tensor
+        parallelism; every dense and router gradient and, over their holders,
+        the expert shards' under expert parallelism)."""
+        for p, group in self._averaged:
             if p.grad is not None:
                 g = _local(p.grad)
-                torch.distributed.all_reduce(g, group=self._data_group)
+                torch.distributed.all_reduce(g, group=group)
                 g.div_(self.world)
 
     def _all_ranks_true(self, flag: torch.Tensor) -> bool:
@@ -536,15 +601,14 @@ class Trainer:
         ``like`` is one, else ``full`` on ``like``'s device."""
         if not hasattr(like, "to_local"):
             return full.to(like.device, like.dtype)
-        from torch.distributed.tensor import DTensor
+        from torch.distributed.tensor import DTensor, Replicate
 
-        local = full
-        for dim, placement in enumerate(like.placements):
-            if placement.is_shard():
-                mesh = like.device_mesh
-                local = local.chunk(mesh.size(dim), placement.dim)[mesh.get_local_rank(dim)]
-        return DTensor.from_local(local.to(_local(like).device, like.dtype).contiguous(),
-                                  like.device_mesh, like.placements, run_check=False)
+        # DTensor's own split (from a whole copy on every rank, no
+        # collective) knows the strided shards of FSDP on top of TP.
+        mesh = like.device_mesh
+        whole = DTensor.from_local(full.to(_local(like).device, like.dtype), mesh,
+                                   [Replicate()] * mesh.ndim, run_check=False)
+        return whole.redistribute(mesh, like.placements)
 
     def _load_model_state(self, state: dict) -> None:
         """Copy whole tensors into the model's parameters and buffers, a
@@ -789,29 +853,53 @@ class Trainer:
         with open(self.metrics_csv_path, "a", newline="") as f:
             csv.writer(f).writerow(row)
 
+    def _frozen_copy(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """A host copy of a frozen parameter, made once: its optimizer never
+        updates it (``pointvit_tpu/train/trainer.py:346-460`` keeps such a
+        cache); made again when the tensor is replaced or written in place
+        (a resume, a pretrained load)."""
+        key = (t._version, t.data_ptr())
+        held = self._frozen_host.get(name)
+        if held is None or held[0] != key:
+            held = (key, t.detach().to("cpu", copy=True))
+            self._frozen_host[name] = held
+        return held[1]
+
+    def _checkpoint_state(self) -> dict:
+        """The checkpoint's state as copies the next step cannot change:
+        whole tensors (gathered from shards: a collective on every rank),
+        copied on their device, frozen parameters from the host copy."""
+        frozen = {n for n, p in self.model.named_parameters() if not p.requires_grad}
+
+        def snapshot(t: torch.Tensor) -> torch.Tensor:
+            full = self._full(t)
+            return full.detach().clone() if full is t else full.detach()
+
+        model = {k: self._frozen_copy(k, t) if k in frozen and self.mesh is None else snapshot(t)
+                 for k, t in self.model.state_dict().items()}
+        return {"model": model, "optimizer": _map_tensors(self.optimizer.state_dict(), snapshot),
+                "step": self.step, "ema": _map_tensors(self.ema, snapshot)}
+
     def _save_checkpoint(self, filename: str, epoch: int, accuracy: float) -> str:
-        state = {
-            "model": self.model.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
-            "step": self.step,
-            "ema": self.ema,
-        }
-        if self.mesh is not None:  # whole tensors, gathered by every rank, written by rank 0
-            state = _map_tensors(state, self._full)
+        """Queue a checkpoint of the state after the last step (rank 0 under
+        a mesh, of whole tensors) on the writer thread; returns its path."""
+        state = self._checkpoint_state()
         path = os.path.join(self.output_dir, filename)
-        if self.is_main:
-            path = save_checkpoint(
-                self.output_dir, filename, epoch=epoch, accuracy=accuracy, state=state,
-                model_config=self.model_config, dataset_config=self.dataset_config,
-            )
-        if self.mesh is not None:
-            torch.distributed.barrier(self._data_group)
-        return path
+        if not self.is_main:
+            return path
+        return save_checkpoint_deferred(
+            self.output_dir, filename, epoch=epoch, accuracy=accuracy,
+            model_config=self.model_config, dataset_config=self.dataset_config,
+            fetch=lambda: _map_tensors(state, lambda t: t.to("cpu")))
 
     def load_checkpoint(self, path: str) -> None:
         """Restore the model, optimizer, update count and EMA from a
         checkpoint and continue after its epoch: a port trainer's ``.pt``
-        or a JAX trainer's ``.msgpack`` (:meth:`_restore_jax`)."""
+        or a JAX trainer's ``.msgpack`` (:meth:`_restore_jax`). Queued
+        writes finish first, on every rank of a mesh."""
+        wait_for_pending_writes()
+        if self.mesh is not None:  # rank 0 may have queued the file
+            torch.distributed.barrier(self._mesh_group)
         restored = load_checkpoint(path, map_location=self.device)
         if "model" in restored:
             if self.mesh is None:
@@ -907,6 +995,7 @@ class Trainer:
                 msg += f"  step p50 {stats['p50_ms']:.1f}ms"
             print(msg)
         self.best_acc = best_acc
+        wait_for_pending_writes()
         if self.is_main:
             print(f"\nTraining completed. Best test accuracy: {best_acc:.4f}")
             print(f"Training metrics saved to {self.metrics_csv_path}")

@@ -4,9 +4,13 @@
 counterpart of the same name in the port's package, or is listed below with
 the ROADMAP item that will bring it (and ROADMAP.md names it there), or is
 left out by design (and ROADMAP.md's "Not ported, by design" paragraph
-names it and says why). Also the C6 names themselves against JAX."""
+names it and says why). Also the C6 names themselves against JAX, and
+every field of each class in the JAX ``nn.__all__`` against the port's
+constructor keywords."""
 
+import dataclasses
 import importlib
+import inspect
 import os
 import re
 
@@ -89,3 +93,37 @@ def test_knn_group_matches_jax():
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     np.testing.assert_array_equal(got[0][:, :, 0].numpy(), centers)  # absolute coordinates
+
+
+# Fields of the JAX ``nn`` modules that the port's constructors leave out,
+# with the reason. The port's layers compute in their input's dtype (the
+# blocks and encoders, which cast their input, keep ``dtype``); the JAX
+# ``implementation='xla'`` is the port's ``implementation='torch'``, a value
+# and not a keyword, so it needs no entry.
+NN_FIELDS_BY_DESIGN = {
+    ("Attention", "dtype"): "computes in x's dtype; the block casts x",
+    ("Mlp", "dtype"): "computes in x's dtype; the block casts x",
+    ("AdapterLayer", "dtype"): "computes in x's dtype; the block casts x",
+    ("SimpleAdapter", "dtype"): "computes in x's dtype; the block casts x",
+    ("ClassificationHead", "dtype"): "computes in the trunk's output dtype",
+    ("ClsHead", "dtype"): "computes in the trunk's output dtype",
+    ("RendererHead", "dtype"): "computes in the trunk's output dtype",
+}
+FLAX_FIELDS = {"parent", "name"}
+
+
+def _jax_nn_classes():
+    jnn = importlib.import_module("pointvit_tpu.nn")
+    return sorted(n for n in jnn.__all__
+                  if inspect.isclass(getattr(jnn, n)) and dataclasses.is_dataclass(getattr(jnn, n)))
+
+
+@pytest.mark.parametrize("name", _jax_nn_classes())
+def test_every_field_of_a_jax_nn_class_is_a_port_keyword_or_listed(name):
+    jcls = getattr(importlib.import_module("pointvit_tpu.nn"), name)
+    port = getattr(importlib.import_module("pointvit_tpu_torch.nn"), name)
+    fields = {f.name for f in dataclasses.fields(jcls)} - FLAX_FIELDS
+    keywords = set(inspect.signature(port.__init__).parameters)
+    listed = {f for (cls, f) in NN_FIELDS_BY_DESIGN if cls == name}
+    assert fields - keywords == listed, name
+    assert not listed & keywords, name  # a listed field the port now takes

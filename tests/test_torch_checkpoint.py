@@ -5,7 +5,9 @@ numpy scalar, a chunked array), its writer's bytes restored by flax, the
 weight bridge's inverse (``state_dict_to_flax``) against each family's JAX
 ``init`` tree, and ``InferenceSession.from_checkpoint`` on a JAX checkpoint
 of each family against the JAX session's logits, with and without the EMA
-weights; a port ``Trainer``'s ``.pt`` checkpoint serves its EMA.
+weights; a port ``Trainer``'s ``.pt`` checkpoint serves its EMA; deferred
+writes (the writer thread's order, the trainer's snapshot, the wait, a
+failed write raised at the next wait, the same bytes as a synchronous save).
 
 Small sizes: APF depth 2, E 32, npoint 16, nsample 8, 64 points; Pix4Point
 and the renderer at the sizes of their parity tests (E 128, two blocks of
@@ -16,6 +18,7 @@ head dim 64, 128 points); f32. Logits are held within 1e-4 of the largest
 
 import json
 import os
+import threading
 
 import flax.serialization as flax_ser
 import jax
@@ -35,7 +38,7 @@ from pointvit_tpu_torch.models import build_model, renderer
 from pointvit_tpu_torch.serve import InferenceSession
 from pointvit_tpu_torch.train import Trainer, build_optimizer, constant_schedule, wait_for_pending_writes
 from pointvit_tpu_torch.train import flax_msgpack
-from pointvit_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from pointvit_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint, save_checkpoint_deferred
 
 LOGIT_REL_TOL = 1e-4
 TINY_VIT = dict(patch_size=8, embed_dim=128, depth=2, num_heads=2)
@@ -190,7 +193,7 @@ def test_the_writer_restores_in_flax_to_the_same_tree(jax_checkpoint, monkeypatc
 
 
 def test_save_checkpoint_writes_either_format_and_waits_for_nothing(tmp_path):
-    wait_for_pending_writes()  # the port writes synchronously: nothing to wait for
+    wait_for_pending_writes()  # nothing queued: returns at once
     weights = {"params": {"w": np.arange(4, dtype=np.float32)}}
     path = save_checkpoint(str(tmp_path), "x.msgpack", epoch=1, accuracy=0.25, state=weights,
                            model_config={"a": 1}, dataset_config={})
@@ -278,3 +281,90 @@ def test_a_port_trainer_checkpoint_serves_its_ema_by_default(tmp_path):
     with torch.no_grad():
         np.testing.assert_array_equal(raw_sess.predict_logits(clouds), plain.eval()(torch.from_numpy(clouds)).numpy())
     assert not np.array_equal(got, raw_sess.predict_logits(clouds))
+
+
+# --------------------------------------------------------- deferred writes
+
+
+def _hold_writer():
+    """Queue a job that blocks the writer thread until the returned event is
+    set: whatever is queued after it waits its turn."""
+    from pointvit_tpu_torch.train import checkpoint
+
+    release = threading.Event()
+    checkpoint._submit(lambda: release.wait(30))
+    return release
+
+
+def test_deferred_writes_land_in_submission_order_and_wait_blocks(tmp_path):
+    """A deferred save, then an async one to the same file name, both behind
+    a held writer: the later one lands last, and nothing is on disk until
+    the writer gets to it."""
+    out = str(tmp_path)
+    release = _hold_writer()
+    kw = dict(epoch=0, accuracy=0.0, model_config={}, dataset_config={})
+    first = save_checkpoint_deferred(out, "m.pt", fetch=lambda: {"w": torch.zeros(3)}, **kw)
+    second = save_checkpoint(out, "m.pt", state={"w": torch.ones(3)}, async_write=True, **kw)
+    assert first == second and not os.path.exists(first)
+    release.set()
+    wait_for_pending_writes()
+    assert torch.equal(load_checkpoint(first)["w"], torch.ones(3))
+
+
+def test_a_failed_write_raises_at_the_next_wait_only(tmp_path):
+    def broken():
+        raise OSError("disk full")
+
+    kw = dict(epoch=0, accuracy=0.0, model_config={}, dataset_config={})
+    save_checkpoint_deferred(str(tmp_path), "a.pt", fetch=broken, **kw)
+    ok = save_checkpoint_deferred(str(tmp_path), "b.pt", fetch=lambda: {"w": torch.ones(1)}, **kw)
+    with pytest.raises(RuntimeError, match="1 checkpoint write") as info:
+        wait_for_pending_writes()
+    assert isinstance(info.value.__cause__, OSError)
+    assert os.path.exists(ok)  # the queue goes on after a failure
+    wait_for_pending_writes()  # reported once
+
+
+def _ckpt_trainer(tmp_path):
+    cfg = {**FAMILIES["apf"][0], "depth": 1}
+    torch.manual_seed(0)
+    model = build_model(cfg)
+    frozen = {n for n, _ in model.named_parameters() if n.startswith("point_encoder")}
+    data = [(c, i % 3) for i, c in enumerate(_clouds(2, 8, 64))]
+    opt = build_optimizer(model, constant_schedule(1e-2), weight_decay=0.0,
+                          trainable_mask=[n for n, _ in model.named_parameters() if n not in frozen])
+    return Trainer(model, train_dataset=data, test_dataset=data[:4], optimizer=opt, batch_size=4,
+                   epochs=1, output_dir=str(tmp_path), model_config=cfg, device="cpu",
+                   ema_decay=0.5, save_config_snapshot=False, prefetch=0)
+
+
+def test_a_deferred_checkpoint_holds_the_state_of_its_step_and_the_synchronous_bytes(tmp_path):
+    """The writer is held while the trainer saves and then takes another
+    step: the file holds the state at the save, not the one after, and its
+    bytes equal a synchronous save of that state. Frozen parameters come
+    from one host copy, made at the first save."""
+    from pointvit_tpu_torch.train.trainer import _map_tensors
+
+    pts, lbl = torch.from_numpy(_clouds(4, 4, 64)), torch.tensor([0, 1, 2, 0])
+    tr = _ckpt_trainer(tmp_path)
+    tr.train_step(pts, lbl)
+    at_save = {k: v.clone() for k, v in tr.model.state_dict().items()}
+    sync = save_checkpoint(str(tmp_path), "sync.pt", epoch=0, accuracy=0.5,
+                           state=_map_tensors(tr._checkpoint_state(), lambda t: t.to("cpu")),
+                           model_config=tr.model_config, dataset_config=tr.dataset_config)
+    cached = {k: v[1] for k, v in tr._frozen_host.items()}
+    assert cached
+    release = _hold_writer()
+    path = tr._save_checkpoint("model_epoch_1.pt", 0, 0.5)
+    tr.train_step(pts, lbl)  # updates the parameters, the moments and the EMA in place
+    assert any(not torch.equal(v, at_save[k]) for k, v in tr.model.state_dict().items())
+    assert not os.path.exists(path)
+    release.set()
+    tr._save_checkpoint("model_epoch_2.pt", 1, 0.5)
+    assert all(tr._frozen_host[k][1] is t for k, t in cached.items())  # not copied again
+    wait_for_pending_writes()
+    saved = load_checkpoint(path)["model"]
+    for k, v in at_save.items():
+        assert torch.equal(saved[k], v), k
+    with open(path, "rb") as f, open(sync, "rb") as g:
+        assert f.read() == g.read()

@@ -1841,3 +1841,158 @@ def test_remat_encoder_step_on_the_card_is_the_step_without_it(dev):
         out.append([loss] + [p.grad for p in model.parameters()]
                    + [b for n, b in model.named_buffers() if "running" in n])
     assert all(torch.equal(a, b) for a, b in zip(*out))
+
+
+def test_a_baked_quantized_artifact_on_the_card_is_the_live_model(dev):
+    """Quantized APF (slim2 widths, depth 2) exported on the card holds its
+    int8 weights and scales: serving the artifact launches the quant-dense
+    kernel and gives the live model's logits bit for bit."""
+    import numpy as np
+
+    from pointvit_tpu_torch.export import export_forward, load_forward
+    from pointvit_tpu_torch.models import build_model
+
+    model = build_model({**_IO_APF, "quantized": True})
+    model.load_state_dict(_io_model(1).state_dict())
+    model = model.to(dev).eval()
+    clouds = np.random.default_rng(2).standard_normal((8, 1024, 3)).astype(np.float32)
+    blob = export_forward(model, clouds)
+    fn = load_forward(blob)
+    _build.reset_launch_counts()
+    got = fn(clouds)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["quant_dense"] > 0
+    with torch.no_grad():
+        want = model(torch.from_numpy(clouds).to(dev)).float()
+    assert torch.equal(got, want)
+    params = sum(p.numel() * p.element_size() for p in model.parameters())
+    assert len(blob) < params  # int8 weights in place of the f32 ones
+
+
+def test_a_two_stage_p3embed_takes_both_routes_on_the_card(dev):
+    """P3Embed(sample_ratio=1/16, embed_dim=512) in bf16: stage 0 (width
+    256) takes the group-MLP kernels, stage 1 (3 + 256 channels) the GEMM
+    chain; the tokens within 2^-6 of the plain path's."""
+    from pointvit_tpu_torch.nn.pointnet import P3Embed
+
+    gen = torch.Generator().manual_seed(7)
+    mod = P3Embed(sample_ratio=1 / 16, embed_dim=512, dtype=torch.bfloat16)
+    with torch.no_grad():
+        for n, t in list(mod.named_parameters()) + list(mod.named_buffers()):
+            if n.endswith("running_var"):
+                t.copy_(0.5 + torch.rand(t.shape, generator=gen))
+            elif t.dim() == 2:
+                t.copy_(torch.randn(t.shape, generator=gen) * t.shape[1] ** -0.5)
+            elif t.is_floating_point():
+                t.copy_(0.2 * torch.randn(t.shape, generator=gen))
+    plain = P3Embed(sample_ratio=1 / 16, embed_dim=512, dtype=torch.bfloat16, implementation="torch")
+    plain.load_state_dict(mod.state_dict())
+    mod, plain = mod.to(dev).eval(), plain.to(dev).eval()
+    pts = torch.randn(4, 2048, 3, generator=gen).to(dev)
+    with torch.no_grad():
+        _build.reset_launch_counts()
+        centers, tokens = mod(pts, pts)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        pc, ptok = plain(pts, pts)
+    assert counts["p3_embed"] == 1 and counts["p3_embed_chain"] == 1, counts
+    assert tokens.shape == (4, 128, 512) and torch.equal(centers, pc)
+    _assert_rel(tokens, ptok)
+
+
+def test_a_deferred_checkpoint_on_the_card_holds_the_state_of_its_step(dev, tmp_path):
+    """The writer thread is held while a trainer on the card saves and then
+    takes another step (which updates the weights, the moments and the EMA
+    in place): the file holds the state at the save, and its bytes are a
+    synchronous save's of that state."""
+    import threading
+
+    import numpy as np
+
+    from pointvit_tpu_torch.models import AdaptPointFormer, apf_trainable_mask
+    from pointvit_tpu_torch.train import Trainer, build_optimizer, constant_schedule
+    from pointvit_tpu_torch.train import checkpoint
+    from pointvit_tpu_torch.train.trainer import _map_tensors
+
+    cfg = dict(num_classes=15, in_channels=3, embedding_dim=128, npoint=64, nsample=16, depth=2,
+               num_heads=2, encoder_second_width=128, dtype=torch.bfloat16)
+    pts = torch.from_numpy(np.random.default_rng(5).standard_normal((16, 512, 3)).astype(
+        np.float32)).to(dev)
+    lbl = torch.arange(16, device=dev) % 15
+    torch.manual_seed(0)
+    model = AdaptPointFormer(**cfg)
+    opt = build_optimizer(model, constant_schedule(1e-3), weight_decay=0.05,
+                          trainable_mask=apf_trainable_mask(model))
+    tr = Trainer(model, train_dataset=None, test_dataset=None, optimizer=opt, batch_size=16,
+                 epochs=1, output_dir=str(tmp_path), device=dev, train_loader=[], test_loader=[],
+                 save_config_snapshot=False, ema_decay=0.9)
+    tr.train_step(pts, lbl)
+    at_save = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    sync = checkpoint.save_checkpoint(
+        str(tmp_path), "sync.pt", epoch=0, accuracy=0.5, model_config={}, dataset_config={},
+        state=_map_tensors(tr._checkpoint_state(), lambda t: t.to("cpu")))
+    release = threading.Event()
+    checkpoint._submit(lambda: release.wait(60))
+    path = tr._save_checkpoint("m.pt", 0, 0.5)
+    tr.train_step(pts, lbl)
+    release.set()
+    checkpoint.wait_for_pending_writes()
+    assert any(not torch.equal(v, at_save[k]) for k, v in model.state_dict().items())
+    saved = checkpoint.load_checkpoint(path)["model"]
+    for k, v in at_save.items():
+        assert torch.equal(saved[k], v.cpu()), k
+    with open(path, "rb") as f, open(sync, "rb") as g:
+        assert f.read() == g.read()
+
+
+def test_a_world1_expert_mesh_step_through_the_kernels_matches_a_step_without(dev, tmp_path):
+    """A one-rank NCCL group: the MoE trunk (vit_small widths, 2 blocks, the
+    second an MoE block of 4 experts, bf16) with its experts on a (data 1 x
+    expert 1) mesh under ``Trainer(mesh=)`` against ``Trainer()``: the
+    expert weights are DTensors, the training kernels launch, and the
+    weights after a step agree within 1e-6 relative."""
+    import os
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from pointvit_tpu_torch.models import build_model
+    from pointvit_tpu_torch.nn.moe import MoEMlp
+    from pointvit_tpu_torch.parallel import make_hybrid_mesh
+    from pointvit_tpu_torch.train import Trainer, build_optimizer, constant_schedule
+
+    cfg = dict(P4P_F32, bf16=True, depth=2, moe_experts=4, moe_every=2)
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp_path, "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        torch.manual_seed(0)
+        base = build_model(cfg)
+        pts = torch.from_numpy(np.random.default_rng(6).standard_normal((8, 2048, 3)).astype(
+            np.float32)).to(dev)
+        lbl = torch.arange(8, device=dev) % 15
+        states = []
+        for mesh in (None, make_hybrid_mesh(model_parallel=1, model_axis="expert")):
+            model = build_model(cfg)
+            for m in model.modules():
+                if isinstance(m, MoEMlp) and mesh is not None:
+                    m.mesh, m.data_axis = mesh, "data"
+            model.load_state_dict(base.state_dict())
+            opt = build_optimizer(model, constant_schedule(1e-3), weight_decay=0.05, grad_clip=1.0)
+            tr = Trainer(model, train_dataset=None, test_dataset=None, optimizer=opt, batch_size=8,
+                         epochs=1, output_dir=str(tmp_path), device=dev, train_loader=[],
+                         test_loader=[], save_config_snapshot=False, mesh=mesh)
+            if mesh is not None:
+                assert hasattr(model.model.blocks[1].mlp.w1, "to_local")
+            _build.reset_launch_counts()
+            tr.train_step(pts, lbl)
+            torch.cuda.synchronize()
+            c = _build.launch_counts()
+            assert c["fps"] > 0 and c["mha_qkv"] > 0 and c["mha_qkv_bwd"] > 0, c
+            states.append({k: (v.full_tensor() if hasattr(v, "full_tensor") else v).detach().clone()
+                           for k, v in model.state_dict().items()})
+        for k, want in states[0].items():
+            if want.is_floating_point():
+                err = (states[1][k] - want).abs().max() / want.abs().max().clamp_min(1e-30)
+                assert err <= 1e-6, (k, err.item())
+    finally:
+        dist.destroy_process_group()

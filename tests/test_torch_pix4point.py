@@ -219,7 +219,7 @@ def test_p3embed_off_the_kernel_shapes_runs_stage_unfused(monkeypatch):
     mod = load_flax_variables(P3Embed(k=K), variables).eval()
     assert mod.implementation is None and mod.layers == 4
     calls, real = [], mod.stage_unfused
-    monkeypatch.setattr(mod, "stage_unfused", lambda x: calls.append(x.shape) or real(x))
+    monkeypatch.setattr(mod, "stage_unfused", lambda x, **kw: calls.append(x.shape) or real(x, **kw))
     with jax.default_matmul_precision("highest"):
         jc, jtok = jax.jit(lambda v, p: jmod.apply(v, p, p))(variables, jnp.asarray(points))
     with torch.no_grad():

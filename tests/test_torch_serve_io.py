@@ -294,8 +294,8 @@ def test_export_matches_the_jax_exported_artifact(apf):
 @pytest.mark.parametrize("which", ["quantized_apf", "pix4point"])
 def test_an_export_leaves_the_live_caches_and_logits_as_they_were(which):
     """A quantized layer keeps its int8 weight, a ViT block its launch
-    weights: the trace computes them in the program, and each cache keeps
-    the same tensors."""
+    weights: the program bakes its own (from a copy of the model), and each
+    live cache keeps the same tensors."""
     if which == "quantized_apf":
         model = _randomize(build_model({**APF_CONFIG, "quantized": True}), 2)
         points = N_POINTS
@@ -315,3 +315,68 @@ def test_an_export_leaves_the_live_caches_and_logits_as_they_were(which):
     with torch.no_grad():
         np.testing.assert_array_equal(model(clouds).numpy(), before.numpy())
     np.testing.assert_array_equal(fn(clouds).numpy(), before.float().numpy())
+
+
+# A model of each kind whose blocks take their fused chains at depth 2 (head
+# dim 64) or whose layers are int8: the artifact holds their launch weights.
+BAKED_CASES = {
+    "apf": lambda: (_randomize(build_model({**APF_CONFIG, "embedding_dim": 64, "bf16": True}), 3),
+                    N_POINTS),
+    "quantized_apf": lambda: (_randomize(build_model({**APF_CONFIG, "quantized": True}), 4), N_POINTS),
+    "pix4point": lambda: (_randomize(Pix4Point(num_classes=10, embed_dim=128, depth=2, num_heads=2,
+                                               k_neighbors=8), 5), 128),
+}
+
+
+def _baked_modules(model):
+    """The modules an export bakes: fused blocks and int8 layers."""
+    return [m for m in model.modules()
+            if isinstance(m, (APFBlock, ViTBlock, SerialAdapterBlock, QuantLinear))]
+
+
+@pytest.mark.parametrize("which", sorted(BAKED_CASES))
+def test_an_artifact_holds_its_launch_weights_in_place_of_the_raw_ones(which):
+    """The program's buffers are the launch weights the live model makes
+    (the blocks' cast and transposed arrays, the int8 weights and scales),
+    the parameters they come from are gone, the artifact is no larger
+    than its weights, and its logits are bit-equal to the live model's at
+    batches 1, 3 and 8 on the CPU's plain path."""
+    from pointvit_tpu_torch.export import baked_copy
+
+    model, points = BAKED_CASES[which]()
+    clouds = torch.from_numpy(_clouds(10, 2, points))
+    baked = baked_copy(model, clouds)
+    live_mods, baked_mods = _baked_modules(model), _baked_modules(baked)
+    assert live_mods and len(live_mods) == len(baked_mods)
+    with torch.no_grad():
+        model(clouds)  # the live caches
+    n_baked = 0
+    for live, mod in zip(live_mods, baked_mods):
+        if isinstance(live, QuantLinear):
+            want = live.quantized_weight()
+            assert mod.weight is None
+            assert (mod.bias is None) == (live.bias is None)  # the bias stays
+        else:
+            want = live._launch._value
+            if isinstance(live, APFBlock) and not live.quantized:  # kept on the card only
+                want = block_kernel.apf_launch_weights(block_kernel.apf_block_weights(live),
+                                                       live.dtype, clouds.device)
+            if want is None:  # a block off its fused chain (a quantized APF block) bakes nothing
+                assert not hasattr(mod, "baked_0")
+                continue
+            assert not list(mod.parameters())
+        got = [getattr(mod, f"baked_{i}") for i in range(len(want))]
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+        n_baked += 1
+    assert n_baked and all(p.numel() for p in model.parameters())  # the live model keeps its own
+    blob = export_forward(model, clouds)
+    fn = load_forward(blob)
+    weights = sum(t.numel() * t.element_size() for t in (*baked.parameters(), *baked.buffers()))
+    assert len(blob) < weights + (1 << 20)
+    for batch in (1, 3, 8):
+        x = torch.from_numpy(_clouds(11 + batch, batch, points))
+        with torch.no_grad():
+            want = model(x).float()
+        np.testing.assert_array_equal(fn(x).numpy(), want.numpy())

@@ -417,4 +417,231 @@ def suite_seq_pipe(rank, world, workdir):
             pipe_case("pipe_dp", mesh, 2, n_data=2)
 
 
-SUITES = {"parallel": suite_parallel, "moe": suite_moe, "seq_pipe": suite_seq_pipe}
+# -- layouts: the Trainer on (data x model) FSDP, (data x expert) and 3-D meshes --
+
+LAYOUT_STEPS = 3
+P4P_LAYOUT = dict(num_classes=15, embed_dim=32, depth=2, num_heads=4, k_neighbors=4, moe_experts=4,
+                  moe_every=2)
+P4P_LAYOUT_CONFIG = {"model_name": "Pix4Point", "pretrained_model": "vit_small_patch16_384",
+                     "pretrained": False, "bf16": False, **P4P_LAYOUT}
+
+
+def _deterministic(model):
+    """No dropout, and FPS from point 0: the JAX side draws other numbers,
+    so the layouts are held against it with no random draw."""
+    import pointvit_tpu_torch.models.apf as apf
+    import pointvit_tpu_torch.nn.pointnet as pointnet
+    from pointvit_tpu_torch.nn.layers import Dropout, DropPath
+
+    zeros = lambda points, generator: torch.zeros(points.shape[0], dtype=torch.long)  # noqa: E731
+    apf.random_starts = pointnet.random_starts = zeros
+    for m in model.modules():
+        if isinstance(m, (Dropout, DropPath)):
+            m.rate = 0.0
+    return model
+
+
+# AdamW's eps for the layouts: with the default 1e-8 a first step moves each
+# entry by about lr·sign(g), so rounding noise in a small gradient becomes a
+# whole step; at 1e-3 the update of the small entries is near linear in g
+# and the runs can be held at rounding level.
+LAYOUT_EPS = 1e-3
+
+
+def _layout_apf(inputs, workdir, tag, implementation=None, **kw):
+    from pointvit_tpu_torch.models import apf_trainable_mask
+    from pointvit_tpu_torch.train import Trainer, build_optimizer, constant_schedule
+
+    model = _deterministic(apf_model(inputs, implementation))
+    opt = build_optimizer(model, constant_schedule(1e-3), weight_decay=1e-2, grad_clip=1.0,
+                          trainable_mask=apf_trainable_mask(model), eps=LAYOUT_EPS)
+    data = [(np.zeros((64, 4), np.float32), 0)] * 16
+    return Trainer(model, train_dataset=data, test_dataset=data, optimizer=opt, batch_size=16,
+                   epochs=1, label_smoothing=0.3, output_dir=os.path.join(workdir, tag),
+                   device="cpu", save_config_snapshot=False, prefetch=0, seed=3, ema_decay=0.5,
+                   **kw)
+
+
+def _layout_moe(inputs, workdir, tag, cf, mesh=None, aux_weight=0.5):
+    from pointvit_tpu_torch.models import Pix4Point
+    from pointvit_tpu_torch.train import Trainer, build_optimizer, constant_schedule
+    from pointvit_tpu_torch.train.pix4point_trainer import no_decay_names
+
+    mkw = dict(moe_mesh=mesh, moe_data_axis="data") if mesh is not None else {}
+    model = _deterministic(Pix4Point(**P4P_LAYOUT, **mkw))
+    model.load_state_dict(inputs["moe"][cf]["state"])
+    for m in model.modules():
+        if hasattr(m, "capacity_factor"):
+            m.capacity_factor = cf
+    opt = build_optimizer(model, constant_schedule(1e-3), weight_decay=5e-2, grad_clip=1.0,
+                          no_decay=no_decay_names(model), eps=LAYOUT_EPS)
+    data = [(np.zeros((64, 3), np.float32), 0)] * 8
+    return Trainer(model, train_dataset=data, test_dataset=data, optimizer=opt, batch_size=8,
+                   epochs=1, output_dir=os.path.join(workdir, tag), device="cpu",
+                   save_config_snapshot=False, prefetch=0, seed=5, mesh=mesh,
+                   model_config=P4P_LAYOUT_CONFIG, train_config={"moe_aux_weight": aux_weight})
+
+
+@contextlib.contextmanager
+def max_gaps():
+    """Record, for every ``amax`` over a tensor that takes a gradient (the
+    group, token and pooling maxima), the least relative gap between the
+    largest and the second largest entry along the reduced axis: a near tie
+    there sends the max's gradient to another row on a side that rounds
+    differently (ties of zeros, after a ReLU, pass no gradient)."""
+    real, gaps = torch.Tensor.amax, []
+
+    def amax(self, dim=(), keepdim=False):
+        if self.requires_grad and self.shape[dim] > 1:
+            with torch.no_grad():
+                top = self.detach().double().topk(2, dim=dim).values
+                lead = top.select(dim, 0)
+                gap = (lead - top.select(dim, 1)) / lead.abs().clamp_min(1e-30)
+                live = lead != 0  # a tie of zeros after a ReLU passes no gradient
+                if live.any():
+                    gaps.append(float(gap[live].min()))
+        return real(self, dim, keepdim)
+
+    torch.Tensor.amax = amax
+    try:
+        yield gaps
+    finally:
+        torch.Tensor.amax = real
+
+
+def _router_gaps(model):
+    """Record, on every forward of each MoE layer, the least relative gap
+    between a token's k-th and (k+1)-th router probabilities."""
+    from pointvit_tpu_torch.nn.moe import MoEMlp
+
+    gaps = []
+
+    def hook(m, args):
+        gate = m.gate.detach()
+        p = torch.softmax(args[0].detach().reshape(-1, gate.shape[0]).double() @ gate.double(), -1)
+        top = p.sort(-1, descending=True).values
+        gaps.append(float(((top[:, :m.top_k] - top[:, 1:m.top_k + 1]) / top[:, :m.top_k]).min()))
+
+    for m in model.modules():
+        if isinstance(m, MoEMlp):
+            m.register_forward_pre_hook(hook)
+    return gaps
+
+
+def _dtensor_layout(model):
+    """name → (mesh dims, the tensor dims sharded, None where replicated)
+    of the DTensor parameters."""
+    return {n: (p.device_mesh.mesh_dim_names,
+                [None if q.is_replicate() else q.dim for q in p.placements])
+            for n, p in model.named_parameters() if hasattr(p, "placements")}
+
+
+def _host(tree):
+    """``tree`` with every tensor a CPU copy (dicts and lists walked)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_host(v) for v in tree)
+    return tree
+
+
+def _trajectory(tr, batch, steps=LAYOUT_STEPS):
+    """``steps`` training steps on this rank's rows ``batch``: the mean loss
+    of each over the rows' ranks, and the whole state (model, optimizer,
+    EMA: a collective on every rank) before the first and after each."""
+    states, losses = [_host(tr._checkpoint_state())], []
+    for _ in range(steps):
+        losses.append(tr._sum_over_ranks(_apf_step(tr, *batch)[0]) / tr.world)
+        states.append(_host(tr._checkpoint_state()))
+    return torch.stack(losses), states
+
+
+def _replay(tr, states, batch):
+    """The one-process trainer's step from each state of a trajectory but
+    the last, on the whole batch: its loss and the state after it."""
+    losses, after = [], []
+    for st in states[:-1]:
+        tr.model.load_state_dict(st["model"])
+        tr.optimizer.load_state_dict(st["optimizer"])
+        if st["ema"] is not None:
+            tr.ema = {k: v.clone() for k, v in st["ema"].items()}
+        losses.append(_apf_step(tr, *batch)[0])
+        after.append(_host(tr._checkpoint_state()))
+    return torch.stack(losses), after
+
+
+def suite_layouts(rank, world, workdir):
+    from pointvit_tpu_torch.parallel import make_hybrid_mesh, make_multihost_mesh
+    from pointvit_tpu_torch.train.checkpoint import wait_for_pending_writes
+
+    inputs = load_inputs(workdir)
+    pts, lbl = inputs["points"], inputs["labels"]
+
+    def clouds(cf, r=None):
+        case = inputs["moe"][cf]
+        if r is None:
+            return case["clouds"], case["labels"]
+        return _rows(case["clouds"], r, 4), _rows(case["labels"], r, 4)
+
+    def replay(tag, make, batch):  # rank 0 holds each step of a layout's run to one process
+        if rank == 0:
+            got = torch.load(os.path.join(workdir, f"{tag}_0.pt"), weights_only=False)
+            with max_gaps() as gaps:
+                loss, after = _replay(make(), got["states"], batch)
+            save(workdir, f"{tag}_replay", rank, loss=loss, states=after, gaps=gaps)
+
+    with ranks(rank, 4, workdir, "fsdp_tp") as on:  # (i) data 2 x model 2, FSDP over the TP plan
+        if on:
+            mesh = make_hybrid_mesh(model_parallel=2, device_type="cpu")
+            tr = _layout_apf(inputs, workdir, "fsdp_tp", "torch", mesh=mesh, fsdp=True)
+            d = mesh.get_local_rank("data")
+            with max_gaps() as gaps:
+                loss, states = _trajectory(tr, (_rows(pts, d, 2), _rows(lbl, d, 2)))
+            # each sharded parameter laid out again from its whole tensor
+            relaid = all(torch.equal(tr._shard_like(_full(p), p).to_local(), p.to_local())
+                         for p in tr.model.parameters() if hasattr(p, "to_local"))
+            path = tr._save_checkpoint("fsdp_tp.pt", 0, 0.5)
+            tr2 = _layout_apf(inputs, workdir, "fsdp_tp", "torch", mesh=mesh, fsdp=True)
+            tr2.load_checkpoint(path)
+            save(workdir, "fsdp_tp", rank, loss=loss, states=states, gaps=gaps, relaid=relaid,
+                 layout=_dtensor_layout(tr.model), resumed=_host(tr2._checkpoint_state()))
+    replay("fsdp_tp", lambda: _layout_apf(inputs, workdir, "fsdp_tp_one", "torch"), (pts, lbl))
+
+    for cf in (2.0, 4.0):  # (ii) MoE Pix4Point, data 2 x expert 2
+        tag = f"moe_ep_cf{cf}"
+        # cf 2 is held to JAX; at cf 4 no token drops and, without the
+        # load-balance term (the mean of each shard's under expert
+        # parallelism, as in JAX), a step is the one-process step.
+        aux = 0.5 if cf == 2.0 else 0.0
+        with ranks(rank, 4, workdir, tag) as on:
+            if on:
+                mesh = make_hybrid_mesh(model_parallel=2, model_axis="expert", device_type="cpu")
+                tr = _layout_moe(inputs, workdir, tag, cf, mesh=mesh, aux_weight=aux)
+                router = _router_gaps(tr.model)
+                with max_gaps() as gaps:
+                    loss, states = _trajectory(tr, clouds(cf, rank))
+                path = tr._save_checkpoint(f"{tag}.pt", 0, 0.5)
+                wait_for_pending_writes()
+                save(workdir, tag, rank, loss=loss, states=states, gaps=gaps + router,
+                     layout=_dtensor_layout(tr.model), path=path)
+        if cf == 4.0:
+            replay(tag, lambda: _layout_moe(inputs, workdir, "moe_one", cf, aux_weight=aux),
+                   clouds(cf))
+
+    with ranks(rank, 4, workdir, "replica") as on:  # (iii) replica 2 x data 2 x model 1
+        if on:
+            os.environ["LOCAL_WORLD_SIZE"] = "2"
+            mesh = make_multihost_mesh(device_type="cpu")
+            tr = _layout_apf(inputs, workdir, "replica", mesh=mesh)
+            d = mesh.get_local_rank("data")
+            with max_gaps() as gaps:
+                loss, states = _trajectory(tr, (_rows(pts, d, 2), _rows(lbl, d, 2)))
+            save(workdir, "replica", rank, loss=loss, states=states, gaps=gaps,
+                 shape=list(mesh.mesh.shape))
+    replay("replica", lambda: _layout_apf(inputs, workdir, "replica_one"), (pts, lbl))
+
+
+SUITES = {"parallel": suite_parallel, "moe": suite_moe, "seq_pipe": suite_seq_pipe,
+          "layouts": suite_layouts}
