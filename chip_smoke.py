@@ -27,7 +27,9 @@
    trainable gradient of the first step, and the trainable parameters after
    the last, must agree between the paths; frozen parameters must not
    change; FPS, kNN and both attention kernels must launch during the 5
-   timed steps. Both paths' ms per step and clouds/s are printed. Then one
+   timed steps, and each train-mode BatchNorm + ReLU (the encoder's three,
+   the head's two) must run the four kernels of ``csrc/batchnorm.cu`` once a
+   step. Both paths' ms per step and clouds/s are printed. Then one
    step of slim2 with npoint 1536 on 8 clouds of 4096 points, above the
    JAX package's Pallas gate for the attention backward, on both paths
    from the same weights, batch and draws: first loss and gradients held as
@@ -39,9 +41,10 @@
    then cosine from lr 5e-4, wd 5e-2 off for the no-decay names, clip 10),
    random FPS starts and the head's dropout drawn as above, an f32 first
    step as the gradient reference, held by the same gates; FPS, kNN and
-   both attention kernels must launch during the timed steps and the fused
-   P3 stage and ViT block kernels must not (training runs them unfused, as
-   JAX does). One kernel-path step is split by the program's spans (CUDA
+   both attention kernels must launch during the timed steps, the
+   BatchNorm + ReLU kernels five times a step (three in the P3 stage, two
+   in the head), and the fused P3 stage and ViT block kernels must not
+   (training runs them unfused, as JAX does). One kernel-path step is split by the program's spans (CUDA
    events, ``profiling.tracing()``) into P3 grouping, the P3 stage, blocks,
    head, loss, backward and optimizer, and one step with the
    trunk frozen must leave every ``model.blocks.*`` and ``model.norm.*``
@@ -56,7 +59,8 @@
    gates; the frozen ViT tensors must stay bit-unchanged, every view-network
    gradient but the three before its BatchNorms must be nonzero on the
    kernel path, the attention forward and backward kernels must launch
-   once a block and step each, and the serial-block, GEMM and LayerNorm
+   once a block and step each, the BatchNorm + ReLU kernels once a view
+   network layer and step, and the serial-block, GEMM and LayerNorm
    kernels must not (the blocks run unfused and the patchify as a plain
    product in training, as JAX does). One kernel-path step is split by the
    trainer's spans into forward, loss, backward and optimizer, and one runs
@@ -481,6 +485,8 @@ KERNELS = {
     "gemm_f32": ("pointvit_tpu_torch/csrc/gemm.cu", "pointvit_tpu/ops/pallas_block.py:338"),
     "gemm_pingpong": ("pointvit_tpu_torch/csrc/gemm.cu", "pointvit_tpu/ops/pallas_block.py:338"),
     "proj_layernorm": ("pointvit_tpu_torch/csrc/gemm.cu", "pointvit_tpu/ops/pallas_block.py:338"),
+    # none: the JAX package leaves train-mode BatchNorm to XLA
+    "bn_relu": ("pointvit_tpu_torch/csrc/batchnorm.cu", "none"),
 }
 # The keys of every entry of the kernels line, and the shape it was measured
 # at: every number on it is measured in this run, but bound_ms.
@@ -493,6 +499,11 @@ GROUP_MLP_COUNTERS = ("group_stack", "group_head")
 SERVING_COUNTERS = ("fps", "knn", "group_encoder", *GROUP_MLP_COUNTERS, "apf_block", "gemm", "layernorm",
                     "attention")
 TRAINING_COUNTERS = ("fps", "knn", "mha_qkv", "mha_qkv_bwd")
+# The train-mode BatchNorm + ReLU op's four wrappers (csrc/batchnorm.cu),
+# each once per BatchNorm a step: APF's encoder 3 + head 2, Pix4Point's P3
+# stage 3 + head 2, the renderer's view network 3.
+BN_COUNTERS = ("bn_stats", "bn_relu", "bn_relu_bwd_stats", "bn_relu_bwd")
+APF_BN_SITES, P4P_BN_SITES, RENDERER_BN_SITES = 5, 5, 3
 # Pix4Point training raises the same counters and leaves the fused P3 stage
 # and blocks, as the JAX package does (nn/pointnet.py:168-171,
 # nn/vit.py:70-71).
@@ -664,6 +675,7 @@ def train_phase(torch, dev, _build) -> dict:
     res = train_paths(torch, _build, trainers, batches, trainable)
     res["grads"]["f32"] = f32
     check_training(torch, "train", res, models, init, trainable, PRE_BN_BIASES, TRAINING_COUNTERS)
+    check_bn_launches("train", res["counts"], APF_BN_SITES)
     print(f"train step at batch {TRAIN_BATCH}: {step_line(res, TRAIN_BATCH)}", flush=True)
     del trainers, models
     torch.cuda.empty_cache()
@@ -784,6 +796,15 @@ def check_training(torch, label, res, models, init, trainable, zero, counters, u
     for name in unused:
         if res["counts"].get(name, 0):
             fail(f"the {label} path launched the {name} kernel, which training leaves")
+
+
+def check_bn_launches(label, counts, sites) -> None:
+    """Each BatchNorm + ReLU wrapper launched ``sites`` times a timed step."""
+    got = {k: counts.get(k, 0) for k in BN_COUNTERS}
+    print(f"{label}: BatchNorm + ReLU launches over {TIMED_STEPS} steps {json.dumps(got)} "
+          f"(want {sites} a step each)", flush=True)
+    if any(v != sites * TIMED_STEPS for v in got.values()):
+        fail(f"{label}: a train-mode BatchNorm + ReLU did not run its kernels once a step")
 
 
 def step_line(res, batch) -> str:
@@ -921,6 +942,7 @@ def pix4point_train_phase(torch, dev, _build) -> dict:
     res["grads"]["f32"] = f32
     check_training(torch, "pix4point train", res, models, init, trainable, P4P_PRE_BN_BIASES,
                    TRAINING_COUNTERS, P4P_TRAIN_UNUSED)
+    check_bn_launches("pix4point train", res["counts"], P4P_BN_SITES)
     print(f"pix4point train step at batch {batch} of {P4P_POINTS} points: {step_line(res, batch)}",
           flush=True)
     del trainers["plain"], models["plain"]
@@ -1009,6 +1031,7 @@ def renderer_train_phase(torch, dev, _build) -> dict:
     res["grads"]["f32"] = f32
     check_training(torch, "renderer train", res, models, init, trainable, RENDERER_PRE_BN_BIASES,
                    RENDERER_TRAIN_COUNTERS, RENDERER_TRAIN_UNUSED)
+    check_bn_launches("renderer train", res["counts"], RENDERER_BN_SITES)
     depth = len(models["kernel"].vit.encoder_layer)
     for name in RENDERER_TRAIN_COUNTERS:  # once a block and step, forward and backward
         if res["counts"][name] != depth * TIMED_STEPS:
@@ -1053,6 +1076,130 @@ def renderer_train_phase(torch, dev, _build) -> dict:
     del trainers, models, model
     torch.cuda.empty_cache()
     return res
+
+
+def batchnorm_phase(torch, dev) -> dict:
+    """Train-mode BatchNorm + ReLU (``csrc/batchnorm.cu``) at the P3
+    stage's training shapes: R = 64 x 512 x 16 rows of widths 256 and 512,
+    bf16. The op on the kernel path must give its plain path's y, x's, γ's
+    and β's gradients and running statistics bit for bit, and the same bits
+    twice; wrapper by wrapper, each reduction's f64 sums within 1e-9
+    (relative to the largest) of its plain version's and each apply (y and
+    coef; dx) bit-equal to its plain version's on the same operands, each
+    wrapper's output the same bits twice. Each of the four kernels timed
+    beside its bytes' bound; the op's forward and backward on the kernel
+    path, on its plain path, as the chain it replaces
+    (``relu(batch_norm(train=True))`` with autograd) and as the library's
+    ``F.batch_norm(training=True)`` + ``relu`` (timed only), each with the
+    card's peak memory of the step. Returns the kernels line's entry at
+    width 512."""
+    import copy
+
+    import torch.nn.functional as F
+
+    from pointvit_tpu_torch.nn.layers import batch_norm, batch_norm_relu
+    from pointvit_tpu_torch.ops import batchnorm_kernel as bk
+
+    R = P4P_TRAIN_CONFIG["batch_size"] * P4P_TOKENS * 16
+    entry = None
+    for C in (256, 512):
+        gen = torch.Generator(device=dev).manual_seed(SEED + C)
+        h = (torch.randn(R, C, device=dev, generator=gen) * 2.0 + 0.3).to(torch.bfloat16)
+        dy = torch.randn(R, C, device=dev, generator=gen).to(torch.bfloat16)
+        bn = torch.nn.BatchNorm1d(C, eps=1e-5, momentum=0.1).to(dev)
+        with torch.no_grad():
+            bn.weight.copy_(1.0 + 0.3 * torch.randn(C, device=dev, generator=gen))
+            bn.bias.copy_(0.2 * torch.randn(C, device=dev, generator=gen))
+
+        def op(path):
+            def run():
+                x = h.detach().requires_grad_()
+                if path == "library":
+                    y = torch.relu(F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                                                training=True, momentum=0.1, eps=bn.eps))
+                elif path == "chain":
+                    y = torch.relu(batch_norm(x, bn, train=True))
+                else:
+                    y = batch_norm_relu(x, bn, train=True,
+                                        implementation="torch" if path == "plain" else None)
+                y.backward(dy)
+                return y
+            return run
+
+        ms, peak = {}, {}
+        for path, iters in (("kernel", 10), ("plain", 3), ("chain", 3), ("library", 10)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ms[path] = cuda_ms(torch, op(path), iters)
+            peak[path] = (torch.cuda.max_memory_allocated() - base) / 2**30
+
+        def step(path):
+            b = copy.deepcopy(bn)
+            b.zero_grad(set_to_none=True)
+            x = h.detach().requires_grad_()
+            y = batch_norm_relu(x, b, train=True, implementation="torch" if path == "plain" else None)
+            y.backward(dy)
+            return dict(y=y.detach(), dx=x.grad, dgamma=b.weight.grad, dbeta=b.bias.grad,
+                        mean=b.running_mean, var=b.running_var)
+
+        got, again, want = step("kernel"), step("kernel"), step("plain")
+        differ = [k for k in want if not torch.equal(got[k], want[k])]
+        err = max((got[k].double() - want[k].double()).abs().max().item() for k in want)
+        if differ:
+            fail(f"bn_relu ({R}, {C}): the kernel path's {differ} differ from the plain path's "
+                 f"(max|d| {err:.3g})")
+        if any(not torch.equal(got[k], again[k]) for k in got):
+            fail(f"bn_relu ({R}, {C}): two runs of the kernel path differ")
+
+        affine = (float(R), bn.weight.detach(), bn.bias.detach(), bn.eps)
+        sums = bk.bn_stats(h)
+        y, coef = bk.bn_relu(h, sums, *affine)
+        gsums = bk.bn_relu_bwd_stats(dy, h, coef)
+        dx = bk.bn_relu_bwd(dy, h, coef, gsums, float(R))
+        parts = {  # wrapper: (outputs, plain outputs, relative tolerance)
+            "bn_stats": ((sums,), (bk.reference_bn_stats(h),), 1e-9),
+            "bn_relu": ((y, coef), bk.reference_bn_relu(h, sums, *affine), 0.0),
+            "bn_relu_bwd_stats": ((gsums,), (bk.reference_bn_relu_bwd_stats(dy, h, coef),), 1e-9),
+            "bn_relu_bwd": ((dx,), (bk.reference_bn_relu_bwd(dy, h, coef, gsums, float(R)),), 0.0),
+        }
+        repeat = {"bn_stats": lambda: (bk.bn_stats(h),),
+                  "bn_relu": lambda: bk.bn_relu(h, sums, *affine),
+                  "bn_relu_bwd_stats": lambda: (bk.bn_relu_bwd_stats(dy, h, coef),),
+                  "bn_relu_bwd": lambda: (bk.bn_relu_bwd(dy, h, coef, gsums, float(R)),)}
+        for name, (outs, plain_outs, tol) in parts.items():
+            for o, p in zip(outs, plain_outs):
+                r = ((o.double() - p.double()).abs().max() / p.double().abs().max().clamp_min(1e-300)).item()
+                if not (r <= tol if tol else torch.equal(o, p)):
+                    fail(f"{name} ({R}, {C}) disagrees with its plain version: max|d| / max|plain| "
+                         f"{r:.3g} (allowed {tol:.3g})")
+            if any(not torch.equal(o, o2) for o, o2 in zip(outs, repeat[name]())):
+                fail(f"{name} ({R}, {C}): two launches differ")
+        elem = R * C * 2
+        kernels = {  # name: (run, bytes moved)
+            "bn_stats": (lambda: bk.bn_stats(h), elem),
+            "bn_relu": (lambda: bk.bn_relu(h, sums, *affine), 2 * elem),
+            "bn_relu_bwd_stats": (lambda: bk.bn_relu_bwd_stats(dy, h, coef), 2 * elem),
+            "bn_relu_bwd": (lambda: bk.bn_relu_bwd(dy, h, coef, gsums, float(R)), 3 * elem),
+        }
+        times = []
+        for name, (run, moved) in kernels.items():
+            t = cuda_ms(torch, run, 20)
+            times.append(f"{name} {t:.4f} ms ({moved / t / 1e6:.0f} GB/s, bound "
+                         f"{bound(0, moved)['bound_ms']:.4f})")
+        b = bound(0, 8 * elem)
+        print(f"time bn_relu ({R}, {C}) bf16, forward + backward: kernel path {ms['kernel']:.4f} ms "
+              f"(bound {b['bound_ms']:.4f}, {b['bound_ms'] / ms['kernel']:.1%}), plain path "
+              f"{ms['plain']:.4f}, the autograd chain it replaces {ms['chain']:.4f}, "
+              f"F.batch_norm + relu {ms['library']:.4f}; peak GiB above the inputs: "
+              f"{json.dumps({k: round(v, 3) for k, v in peak.items()})}; the kernel path bit-equal to "
+              f"the plain path and to itself, each wrapper to its plain version; kernels: "
+              f"{'; '.join(times)}", flush=True)
+        entry = dict(shape=f"({R}, {C}) bf16, forward + backward", ms=ms["kernel"], plain_ms=ms["plain"],
+                     library_ms=ms["library"], max_abs_err=err, **b)
+        del h, dy, got, again, want, y, dx
+        torch.cuda.empty_cache()
+    return entry
 
 
 def device_time_by_kernel(torch, run, top: int = 8, ranges=()) -> dict:
@@ -4197,6 +4344,7 @@ def main() -> None:
     t_train = time.perf_counter()
     p4p_train_counts = pix4point_train_phase(torch, dev, _build)["counts"]
     print(f"pix4point training phase: {time.perf_counter() - t_train:.1f} s", flush=True)
+    bn_entry = batchnorm_phase(torch, dev)
 
     # -- renderer (vit_b_16, 6 learned views) training, batch 16 x 2048 ------
     t_train = time.perf_counter()
@@ -4301,7 +4449,7 @@ def main() -> None:
             fail(f"{name} disagrees with its plain version")
         return d
 
-    results, apf_shapes, more_shapes = {}, {}, {}
+    results, apf_shapes, more_shapes = {"bn_relu": bn_entry}, {}, {}
     with torch.inference_mode():
         # FPS and kNN at the APF shape (printed), then at Pix4Point's (the line).
         xyz = torch.from_numpy(big).to(dev)

@@ -69,6 +69,7 @@ NVCC_FLAGS = (
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
 FLOAT = ctypes.c_float
+DOUBLE = ctypes.c_double
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -133,7 +133,7 @@ class AdaptPointFormer(nn.Module):
         )
         self.encoder_norm = nn.LayerNorm(embedding_dim, eps=LN_EPS)
         self.dropout = Dropout(dropout_rate)
-        self.head = ClassificationHead(embedding_dim, num_classes)
+        self.head = ClassificationHead(embedding_dim, num_classes, implementation=implementation)
 
     def forward(self, points: torch.Tensor, *, train: bool = False,
                 generator: torch.Generator | None = None) -> torch.Tensor:

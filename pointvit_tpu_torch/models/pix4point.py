@@ -138,7 +138,7 @@ class Pix4Point(nn.Module):
                               moe_every=moe_every, moe_top_k=moe_top_k,
                               moe_normalize_gates=moe_normalize_gates, moe_mesh=moe_mesh,
                               moe_expert_axis=moe_expert_axis, moe_data_axis=moe_data_axis)
-        self.cls_head = ClsHead(self.model.num_features, num_classes)
+        self.cls_head = ClsHead(self.model.num_features, num_classes, implementation=implementation)
 
     @classmethod
     def from_pretrained_name(cls, pretrained_model: str, **kwargs) -> "Pix4Point":

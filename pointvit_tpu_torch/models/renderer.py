@@ -35,7 +35,7 @@ import torch
 from torch import nn
 
 from pointvit_tpu_torch.nn.heads import RendererHead
-from pointvit_tpu_torch.nn.layers import batch_norm, linear
+from pointvit_tpu_torch.nn.layers import batch_norm_relu, linear
 from pointvit_tpu_torch.nn.vit import ImageViT
 from pointvit_tpu_torch.ops.render import render_diff_views, render_fixed_views
 
@@ -71,13 +71,15 @@ class ViewTransformationNetwork(nn.Module):
     Three pointwise Linear → BatchNorm → ReLU layers (64, 128, hidden), a max
     over points, two Linear → ReLU, and the two heads (zero weights, the
     camera ring as bias), all in ``dtype``. The BatchNorms use batch
-    statistics in training (:func:`~pointvit_tpu_torch.nn.layers.batch_norm`:
-    flax's momentum 0.9 and biased variance), running ones otherwise."""
+    statistics in training
+    (:func:`~pointvit_tpu_torch.nn.layers.batch_norm_relu`: flax's momentum
+    0.9 and biased variance), running ones otherwise."""
 
     def __init__(self, num_views: int = 6, hidden_dim: int = 256,
-                 dtype: torch.dtype = torch.float32) -> None:
+                 dtype: torch.dtype = torch.float32, implementation: str | None = None) -> None:
         super().__init__()
         self.dtype = dtype
+        self.implementation = implementation
         widths = (3, 64, 128, hidden_dim)
         for i in range(3):
             setattr(self, f"enc{i}", nn.Linear(widths[i], widths[i + 1]))
@@ -97,7 +99,8 @@ class ViewTransformationNetwork(nn.Module):
         x = points.to(self.dtype)
         for i in range(3):
             h = linear(x, getattr(self, f"enc{i}"))
-            x = torch.relu(batch_norm(h, getattr(self, f"enc_bn{i}"), train=train))
+            x = batch_norm_relu(h, getattr(self, f"enc_bn{i}"), train=train,
+                                implementation=self.implementation)
         x = x.amax(dim=1)
         for fc in (self.pred0, self.pred1):
             x = torch.relu(linear(x, fc))
@@ -125,7 +128,7 @@ class PointCloudRendererClassifier(nn.Module):
         self.dtype = dtype
         if diff_renderer:
             self.view_transform_net = ViewTransformationNetwork(
-                num_views, view_transform_hidden, dtype=dtype)
+                num_views, view_transform_hidden, dtype=dtype, implementation=implementation)
         self.vit = ImageViT(preset["depth"], preset["embed_dim"], preset["num_heads"],
                             preset["patch_size"], img_size, adapter_dim, dtype=dtype,
                             implementation=implementation)

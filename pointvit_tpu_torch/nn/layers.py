@@ -33,6 +33,7 @@ from torch import nn
 
 from pointvit_tpu_torch.nn.quant import QuantLinear, dense
 from pointvit_tpu_torch.ops.attention_kernel import fused_mha_qkv
+from pointvit_tpu_torch.ops.batchnorm_kernel import WIDTH_MULTIPLE, train_batch_norm_relu
 from pointvit_tpu_torch.ops.block_kernel import LN_EPS
 from pointvit_tpu_torch.parallel.comm import all_reduce_sum, current_batch, draw_rows
 from pointvit_tpu_torch.parallel.mesh import DTENSOR, tp_attention, tp_linear
@@ -46,6 +47,7 @@ __all__ = [
     "DropPath",
     "Identity",
     "batch_norm",
+    "batch_norm_relu",
     "layer_norm",
     "update_running_stats",
     "linear",
@@ -107,6 +109,31 @@ def batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d, *, train: bool,
         deferred.append((bn, mean.detach(), var.detach()))
     y = (xf - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
     return y.to(x.dtype)
+
+
+def batch_norm_relu(x: torch.Tensor, bn: nn.BatchNorm1d, *, train: bool,
+                    deferred: list | None = None, implementation: str | None = None) -> torch.Tensor:
+    """``relu(batch_norm(x, bn, train=train, deferred=deferred))``, the
+    training path's one op for it. In training, over a width that is a
+    multiple of 8, it is
+    :func:`~pointvit_tpu_torch.ops.batchnorm_kernel.train_batch_norm_relu`:
+    the kernels of ``csrc/batchnorm.cu`` in both directions on the card (the
+    plain versions on the CPU, or with ``implementation='torch'``), the same
+    statistics, running-statistics update, ``deferred`` and global-batch
+    semantics as :func:`batch_norm`. Any other width, and inference, take
+    :func:`batch_norm` and ``torch.relu``."""
+    if not train or x.shape[-1] % WIDTH_MULTIPLE:
+        return torch.relu(batch_norm(x, bn, train=train, deferred=deferred))
+    batch = current_batch()
+    y, coef = train_batch_norm_relu(
+        x, bn.weight, bn.bias, bn.eps, group=batch.group if batch is not None else None,
+        world=batch.size if batch is not None else 1, plain=implementation == "torch")
+    stats = (bn, coef[0], coef[4])  # the batch's mean and biased variance
+    if deferred is None:
+        update_running_stats([stats])
+    else:
+        deferred.append(stats)
+    return y
 
 
 def update_running_stats(updates) -> None:

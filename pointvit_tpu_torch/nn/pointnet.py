@@ -14,9 +14,11 @@ Counterpart of ``pointvit_tpu/nn/pointnet.py``. ``GroupFeatureEncoder``
 BatchNorms fold into the products and the encoder runs
 :func:`~pointvit_tpu_torch.ops.encoder_kernel.fused_group_encoder` (the
 kernel chain on the card) or, with ``implementation='torch'``, its plain
-version. In training it runs the unfolded body in plain PyTorch with batch
-statistics, as the JAX encoder refuses its fused kernel when ``train``
-(``nn/pointnet.py:54-56``). With ``quantized=True`` (inference only)
+version. In training it runs the unfolded body with batch statistics, as
+the JAX encoder refuses its fused kernel when ``train``
+(``nn/pointnet.py:54-56``): plain products, each BatchNorm + ReLU one op
+(:func:`~pointvit_tpu_torch.nn.layers.batch_norm_relu`, kernels on the
+card). With ``quantized=True`` (inference only)
 ``first_1``, ``first_2``, ``second_0_local`` and ``second_1`` are
 :class:`~pointvit_tpu_torch.nn.quant.QuantLinear` and the encoder runs the
 same unfolded body with BatchNorm on its running statistics, as the JAX
@@ -40,7 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from pointvit_tpu_torch.nn.layers import batch_norm, linear, update_running_stats
+from pointvit_tpu_torch.nn.layers import batch_norm_relu, linear, update_running_stats
 from pointvit_tpu_torch.nn.quant import dense
 from pointvit_tpu_torch.ops.encoder_kernel import (
     BN_EPS,
@@ -132,14 +134,15 @@ class GroupFeatureEncoder(nn.Module):
         layer by layer; BatchNorms on batch statistics over all M·K rows when
         ``train``, else on their running statistics; ``deferred`` collects
         the running-statistics updates instead of applying them."""
-        bn = lambda t, m: batch_norm(t, m, train=train, deferred=deferred)  # noqa: E731
-        x = torch.relu(bn(linear(x, self.first_0), self.first_bn0))
-        x = torch.relu(bn(linear(x, self.first_1), self.first_bn1))
+        bn = lambda t, m: batch_norm_relu(t, m, train=train, deferred=deferred,  # noqa: E731
+                                          implementation=self.implementation)
+        x = bn(linear(x, self.first_0), self.first_bn0)
+        x = bn(linear(x, self.first_1), self.first_bn1)
         x = linear(x, self.first_2)
         g = x.amax(dim=-2, keepdim=True)  # (M, 1, E)
         # concat([g, x]) @ W split in two: the global half runs once per group.
         x = linear(g, self.second_0_global) + linear(x, self.second_0_local)
-        x = torch.relu(bn(x, self.second_bn0))
+        x = bn(x, self.second_bn0)
         return linear(x, self.second_1).amax(dim=-2)
 
 
@@ -171,8 +174,9 @@ class P3Embed(nn.Module):
     (``nn/pointnet.py:166-186``): one cloud of 1000 points (S = 250) does.
 
     ``train=True`` runs :meth:`stage_unfused` with train-mode BatchNorm
-    (batch statistics, running statistics updated with flax's conventions,
-    :func:`~pointvit_tpu_torch.nn.layers.batch_norm`), as the JAX stage
+    (batch statistics, running statistics updated with flax's conventions;
+    each BatchNorm + ReLU one op,
+    :func:`~pointvit_tpu_torch.nn.layers.batch_norm_relu`), as the JAX stage
     leaves its fused kernel when training (``nn/pointnet.py:168-171``).
     FPS starts at point 0, or, in training with a generator, at a random
     point of every cloud drawn from it (one draw per stage), as the JAX
@@ -241,17 +245,18 @@ class P3Embed(nn.Module):
         """Stage ``stage``'s conv stacks layer by layer, (B, S, K, C) →
         (B, S, dim), with BatchNorm on batch statistics when ``train``, else
         on its running statistics."""
-        bn = lambda t, m: batch_norm(t, m, train=train)  # noqa: E731
+        bn = lambda t, m: batch_norm_relu(t, m, train=train,  # noqa: E731
+                                          implementation=self.implementation)
         layer = lambda name: getattr(self, f"s{stage}_{name}")  # noqa: E731
         half = self.layers // 2
         for i in range(half):
             x = linear(x, layer(f"conv1_{i}"))
-        x = torch.relu(bn(x, layer("conv1_bn")))
+        x = bn(x, layer("conv1_bn"))
         g = x.amax(dim=-2, keepdim=True)
         x = torch.cat([g.expand_as(x), x], dim=-1)
         for i in range(half):
             x = linear(x, layer(f"conv2_{i}"))
-            x = torch.relu(bn(x, layer(f"conv2_bn{i}")))
+            x = bn(x, layer(f"conv2_bn{i}"))
         return x.amax(dim=-2)
 
 

@@ -10,6 +10,7 @@ builds at its first launch.
 
 from pointvit_tpu_torch.ops import (  # noqa: F401  (each registers its custom ops)
     attention_kernel,
+    batchnorm_kernel,
     block_kernel,
     encoder_kernel,
     fps_kernel,

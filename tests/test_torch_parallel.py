@@ -55,7 +55,10 @@ def ranks(tmp_path_factory):
     torch.save(dict(apf_state=model.state_dict(),
                     points=rng.standard_normal((16, 64, 4)).astype(np.float32),
                     labels=(np.arange(16) % 15).astype(np.int64),
-                    qkv=rng.standard_normal((4, 10, 96)).astype(np.float32)),
+                    qkv=rng.standard_normal((4, 10, 96)).astype(np.float32),
+                    bn_state=torch.nn.BatchNorm1d(24).state_dict(),
+                    bn_x=torch.from_numpy((1.5 * rng.standard_normal((8, 5, 24)) + 0.5).astype(np.float32)),
+                    bn_w=torch.from_numpy(rng.standard_normal((8, 5, 24)).astype(np.float32))),
                os.path.join(wd, "inputs.pt"))
     torch_dist_cases.spawn("parallel", wd, 4, timeout=300)
     return lambda name, r=0: torch.load(os.path.join(wd, f"{name}_{r}.pt"), weights_only=False)
@@ -185,6 +188,26 @@ def test_tensor_parallel_plan_matches_the_jax_markers_and_refuses_the_kernels(ra
             want.add(f"{'.'.join(keys[:-1])}:{'Colwise' if sh.spec[1] else 'Rowwise'}Parallel")
     assert set(block["plan"]) == want
     assert int(ranks("dptp")["local_rows"]) == 3 * APF_CFG["embedding_dim"] // 2  # 2 of 4 heads
+
+
+def test_batch_norm_relu_over_the_global_batch_equals_one_process(ranks):
+    """``batch_norm_relu`` in training under ``global_batch`` on 2 gloo ranks
+    (each half of 8 × 5 rows of width 24, loss Σ y·w) against one process
+    over all of them: each rank's output and x gradient are its rows of the
+    one process's, its γ and β gradients summed over the ranks (the step's
+    gradient sync) are the one process's, and every rank's running
+    statistics moved once, by the global batch's statistics."""
+    one = ranks("bn_single")
+    got = [ranks("bn", r) for r in range(2)]
+    for r, g in enumerate(got):
+        rows = slice(4 * r, 4 * r + 4)
+        torch.testing.assert_close(g["y"], one["y"][rows], rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(g["dx"], one["dx"][rows], rtol=1e-5, atol=1e-6)
+        for k in ("mean", "var"):
+            torch.testing.assert_close(g[k], one[k], rtol=1e-6, atol=1e-7)
+    for k in ("dgamma", "dbeta"):
+        torch.testing.assert_close(got[0][k] + got[1][k], one[k], rtol=1e-5, atol=1e-5)
+        assert not torch.allclose(got[0][k], one[k])  # each rank holds its own rows' part
 
 
 def test_serving_with_a_mesh_rounds_the_buckets_and_matches_one_device(ranks):

@@ -198,6 +198,10 @@ def _op_cases():
         ("group_stack", (r(32, 6), [r(16, 8), r(16)], 8, False)),
         ("group_head", (r(32, 8), r(4, 16), r(16, 8), r(8, 16), r(8), 8, [])),
         ("group_head", (r(32, 6), r(4, 16), r(16, 16), r(8, 16), r(8), 8, [r(16, 8), r(16)])),
+        ("bn_stats", (r(10, 16),)),
+        ("bn_relu", (r(10, 16), r(2, 16).double().abs() * 10, 10.0, r(16), r(16), 1e-5)),
+        ("bn_relu_bwd_stats", (r(10, 16), r(10, 16), r(6, 16))),
+        ("bn_relu_bwd", (r(10, 16), r(10, 16), r(6, 16), r(2, 16).double(), 10.0)),
         ("layer_norm", (r(10, 16), r(16), r(16))),
         ("pos_layer_norm", (r(10, 16), r(5, 16), r(16), r(16))),
         ("attention", (qkv, 2)),

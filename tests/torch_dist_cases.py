@@ -251,6 +251,26 @@ def suite_parallel(rank, world, workdir):
                  after2=after2, path=path, eval=ev, ema_after1=snapshot(tr.ema),
                  after_eval=snapshot(tr.model.state_dict()), groups=groups, moments=moments)
 
+    with ranks(rank, 2, workdir, "bn") as on:  # BatchNorm + ReLU over the global batch
+        if on:
+            from pointvit_tpu_torch.nn.layers import batch_norm_relu
+            from pointvit_tpu_torch.parallel.comm import global_batch
+
+            def bn_run(x, w, rows=None):
+                bn = torch.nn.BatchNorm1d(x.shape[-1], eps=1e-5, momentum=0.1)
+                bn.load_state_dict(inputs["bn_state"])
+                x = x.clone().requires_grad_()
+                with global_batch(dist.group.WORLD, len(x)) if rows else contextlib.nullcontext():
+                    y = batch_norm_relu(x, bn, train=True)
+                (y * w).sum().backward()
+                return dict(y=y.detach(), dx=x.grad, dgamma=bn.weight.grad, dbeta=bn.bias.grad,
+                            mean=bn.running_mean, var=bn.running_var)
+
+            x, w = inputs["bn_x"], inputs["bn_w"]
+            save(workdir, "bn", rank, **bn_run(_rows(x, rank, 2), _rows(w, rank, 2), rows=True))
+            if rank == 0:
+                save(workdir, "bn_single", rank, **bn_run(x, w))
+
     with ranks(rank, 2, workdir, "serve") as on:
         if on:
             mesh = make_mesh(device_type="cpu")
